@@ -4,7 +4,7 @@
 Mirrors the retired ``RecToolsIR`` surface exercised by the reference's
 legacy demos (``Demos/methods_IR_legacy/DemoFISTA_artifacts3D.py:204-298``,
 ``DemoFISTA_NLTV_2D.py``): FGP-TV, SB-TV, LLT-ROF, TGV, NDF, Diff4th,
-NLTV and Haar wavelet shrinkage — here as TPU-native denoisers, plus one
+NLTV and Haar wavelet shrinkage — here as device-resident denoisers, plus one
 FISTA reconstruction with a combined ``PD_TV_WAVELETS`` prox.
 
 Run:  python examples/legacy_regularisers_tour.py

@@ -7,7 +7,7 @@ parallelisation"); here distribution is a framework layer: a
 angle subsets (psum-reduced backprojections), and the same solver code
 runs unchanged on 1 chip or a pod.
 
-On a TPU pod this uses the real devices; anywhere else it demonstrates
+On a multi-GPU host this uses the real devices; anywhere else it demonstrates
 the identical program on virtual CPU devices:
 
     XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \

@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
 """3D phantom -> noisy projections -> FBP vs FISTA-OS-TV, with RMSE.
 
-TPU-native worked example mirroring the reference workflow in
+Worked example mirroring the reference workflow in
 ``Demos/tomophantom_3D_recon1.py`` (phantom -> ModelSino -> noise -> FBP ->
 FISTA-OS with regularisation -> QualityTools RMSE).  TomoPhantom is not a
 dependency here: the phantom is a built-in ellipsoid stack and the
 projection data comes from the framework's own forward projector, with
 Poisson counting noise applied in intensity space.
 
-Run (any backend; uses the TPU automatically when present):
+Run (any backend; uses the GPU automatically when present):
 
     python examples/phantom3d_fista_os_tv.py
 """

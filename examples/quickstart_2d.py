@@ -4,7 +4,7 @@
 The smallest end-to-end tour of the framework, mirroring the reference's
 2D entry demo (``Demos/tomophantom_2D_recon1.py``: build phantom, forward
 project, FBP with the sinc filter, iterative recon with TV).  Everything
-runs on whatever backend JAX finds (the TPU when present, CPU otherwise).
+runs on whatever backend JAX finds (the GPU when present, CPU otherwise).
 
 Run:
 

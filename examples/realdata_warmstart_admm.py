@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Production pattern: normalise raw counts -> FBP warm start -> ADMM-OS24.
 
-TPU-native worked example of the reference's real-data recipe
+Worked example of the reference's real-data recipe
 (``Demos/RealData.py:228-235``, CHANGELOG v2026.2.0.0): flat/dark-field
 normalisation with -log transform, a padded FBP used as the ADMM
 initialiser, then 2 outer ADMM iterations with 24 ordered subsets, PWLS

@@ -1,27 +1,12 @@
-"""Split-complex FFT (ops/fft_real.py) vs numpy reference.
-
-The deployment TPU backend has no complex64 support at all, so every
-device-path FFT in the framework routes through fft_real; these tests pin
-its numerics to numpy's pocketfft on CPU.
-"""
+"""(re, im)-pair FFT helpers (ops/fft_real.py) vs numpy's pocketfft."""
 
 import numpy as np
 import pytest
 
-from conftest import on_real_device
-
 from tomobar_tpu.ops import fft_real as FR
 
-# On chip the DFT matmuls run at the MXU's DEFAULT precision (operands
-# rounded to bf16): absolute error ~1e-3 of the spectrum norm instead of
-# the CPU path's ~1e-5.  This is a deliberate speed/precision point —
-# recon-quality is pinned end-to-end by the hardware goldens
-# (test_goldens.GOLDEN_TPU) and the TPU-lane recon tests — so the
-# numpy-parity tolerances scale accordingly on the hardware lane.
-TOL = 30.0 if on_real_device() else 1.0
-# round-trip (fwd+inv) checks accumulate both passes' bf16 matmul error:
-# ~4e-3 absolute on unit-scale data on chip vs ~1e-5 on the f32 CPU path
-RT_ATOL = 2e-2 if on_real_device() else 3e-5
+TOL = 1.0
+RT_ATOL = 3e-5
 
 
 @pytest.mark.parametrize(
@@ -63,11 +48,8 @@ def test_fft2_matches_numpy(shape):
     re, im = FR.fft2_pairs(x.real, x.imag)
     ref = np.fft.fft2(x, axes=(-2, -1))
     got = np.asarray(re) + 1j * np.asarray(im)
-    # chip: a handful of isolated bins carry ~4% relative error from the
-    # coherently-biased bf16 twiddle rounding (<0.001% of elements)
     np.testing.assert_allclose(
-        got, ref, rtol=(5e-2 if on_real_device() else 0.0),
-        atol=TOL * 3e-4 * np.abs(ref).max(),
+        got, ref, rtol=0.0, atol=TOL * 3e-4 * np.abs(ref).max()
     )
     yre, yim = FR.ifft2_pairs(re, im)
     back = np.asarray(yre) + 1j * np.asarray(yim)
@@ -76,23 +58,15 @@ def test_fft2_matches_numpy(shape):
 
 @pytest.mark.parametrize("n", [512, 2560])
 def test_fft_relative_l2_error_bound(n):
-    """Energy-normalised accuracy bound that holds on BOTH lanes.
-
-    The elementwise atol above is deliberately loose on chip (bf16 MXU
-    operands); this pins the spectrum-level relative L2 error
-    ||got - ref||_2 / ||ref||_2, which the bf16 rounding cannot inflate
-    past ~1e-3, so a genuine on-chip numeric regression (wrong twiddle,
-    mis-split radix, dropped strip) trips it even within the loose
-    per-element tolerances."""
+    """Spectrum-level relative L2 error ||got - ref||_2 / ||ref||_2: a
+    float32 FFT stays near 1e-7, so a wrong transform or scale trips it."""
     rng = np.random.RandomState(17)
     x = (rng.rand(4, n) + 1j * rng.rand(4, n)).astype(np.complex64)
     re, im = FR.fft_pairs(x.real, x.imag)
     ref = np.fft.fft(x, axis=-1)
     got = np.asarray(re) + 1j * np.asarray(im)
     rel_l2 = np.linalg.norm(got - ref) / np.linalg.norm(ref)
-    # chip: measured 2.4e-3 at n=2560 (bf16 operand rounding accumulated
-    # over the recursive split); a real regression is orders larger
-    assert rel_l2 < (4e-3 if on_real_device() else 2e-6)
+    assert rel_l2 < 2e-6
 
 
 @pytest.mark.parametrize("R", [6, 7])  # even + odd row counts (pair packing)
@@ -114,23 +88,3 @@ def test_apply_freq_filter_real(R):
     )
     ref = np.real(np.fft.ifft(np.fft.fft(x, axis=-1) * w, axis=-1))
     np.testing.assert_allclose(got, ref, atol=RT_ATOL)
-
-
-@pytest.mark.parametrize("n,L", [(2560, 256), (1280, 512)])
-def test_fused_axis2_matches_plain(n, L, monkeypatch):
-    """The fused Pallas axis-(-2) pass (interpret mode) must match the
-    plain split path and numpy along the second-to-last axis."""
-    B, C = FR._best_split(n)
-    assert 1 < B <= 8 and C <= FR._MAX_MATMUL_N
-    rng = np.random.RandomState(11)
-    x = (rng.rand(2, n, L) + 1j * rng.rand(2, n, L)).astype(np.complex64)
-    re = np.ascontiguousarray(x.real)
-    im = np.ascontiguousarray(x.imag)
-    monkeypatch.setattr(FR, "_FFT_INTERPRET", [True])
-    monkeypatch.setattr(FR, "use_native_complex_fft", lambda: False)
-    fre, fim = FR._fft_axis2_fused(
-        FR.jnp.asarray(re), FR.jnp.asarray(im), -1, B, C
-    )
-    ref = np.fft.fft(x, axis=-2)
-    got = np.asarray(fre) + 1j * np.asarray(fim)
-    np.testing.assert_allclose(got, ref, atol=TOL * 4e-4 * np.abs(ref).max())

@@ -7,8 +7,6 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from conftest import dev_tol, on_real_device
-
 from tomobar_tpu.ops.filters import (
     CLASSIC_FILTER_TYPES,
     FILTER_TYPES,
@@ -75,7 +73,7 @@ class TestFourierInv:
         corr = np.corrcoef(rec[0][m], ph[0][m])[0, 1]
         # 0.93+ at N=64/90 angles (discretisation-bound; reaches ~0.99 vs a
         # classic FBP of the same data at N>=128)
-        assert corr > dev_tol(0.92, 0.90)
+        assert corr > 0.92
 
     def test_matches_projector_geometry(self, fourier_problem):
         """Re-projection of the recon aligns with the input sinogram (no
@@ -120,7 +118,7 @@ class TestFourierInv:
 
     def test_2d_input_promoted(self, fourier_problem):
         """A 2D (angles, detX) sinogram is promoted to detY=1 and squeezed
-        back, matching the class API elsewhere (VERDICT r1 weak #6)."""
+        back, matching the class API elsewhere."""
         sino3d = fourier_problem["sino"]
         rt = fourier_problem["rt"]
         rec3d = np.asarray(
@@ -178,7 +176,7 @@ class TestFourierInv:
 
 
 class TestFourierSlice2D:
-    """The TPU-native FOURIER (unfiltered Fourier-slice) method."""
+    """The device FOURIER (unfiltered Fourier-slice) method."""
 
     def test_reconstructs_blurred_phantom(self, fourier_problem):
         sino2d = fourier_problem["sino"][0]
@@ -218,55 +216,63 @@ class TestFourierSlice2D:
             )
 
 
-class TestUsfftGridPallas:
-    """Banded-matmul Pallas gridding vs the XLA scatter oracle (exact tap
-    sets, so agreement is float-rounding-level).  Interpret mode on CPU;
-    the reference's analogous differential test is prune-vs-naive
-    (test_RecToolsDIRCuPy.py:35-223)."""
+def _spread_numpy(dre, dim, n, theta, eps=1e-4):
+    """Direct float64 spreading sum of the USFFT gridding step: the centred
+    FFT of every projection row, each polar sample added onto the
+    (2n, 2n) grid with its Gaussian weight over the (2m+1)^2 footprint."""
+    mu = -np.log(eps) / (2 * n * n)
+    m = int(np.ceil(2 * n / np.pi * np.sqrt(-mu * np.log(eps) + (mu * n) ** 2 / 4)))
+    sign = np.where(np.arange(n) % 2 == 1, 1.0, -1.0)
+    g = np.fft.fft(dre.astype(np.float64) + 1j * dim.astype(np.float64), axis=-1)
+    g = g * sign * (4.0 / n)
+    c = (np.arange(n) - n / 2) / n
+    x0 = np.minimum(c[None, :] * np.cos(theta)[:, None], 0.5 - 1e-5)
+    y0 = np.minimum(-c[None, :] * np.sin(theta)[:, None], 0.5 - 1e-5)
+    e0 = np.floor(2 * n * x0).astype(np.int64)
+    e1 = np.floor(2 * n * y0).astype(np.int64)
+    out = np.zeros((dre.shape[0], 2 * n, 2 * n), np.complex128)
+    for i1 in range(2 * m + 1):
+        for i0 in range(2 * m + 1):
+            ell0 = e0 - m + i0
+            ell1 = e1 - m + i1
+            w = (np.pi / mu) * np.exp(
+                -np.pi**2 / mu
+                * ((ell0 / (2 * n) - x0) ** 2 + (ell1 / (2 * n) - y0) ** 2)
+            )
+            r1 = np.mod(ell1 + n, 2 * n).ravel()
+            r0 = np.mod(ell0 + n, 2 * n).ravel()
+            for z in range(dre.shape[0]):
+                np.add.at(out[z], (r1, r0), (g[z] * w).ravel())
+    return out
+
+
+class TestUsfftGridXLA:
+    """The XLA scatter-add gridding against a direct float64 spreading sum
+    written independently in NumPy (the reference's analogous
+    differential test is prune-vs-naive, test_RecToolsDIRCuPy.py:35-223)."""
 
     @pytest.mark.parametrize(
         "thetas",
         [
-            -np.linspace(0, np.pi, 61, endpoint=False),  # incl. 0, ~pi/2
-            np.linspace(-0.3, 2.8, 47),  # arbitrary range, both drivens
+            -np.linspace(0, np.pi, 31, endpoint=False),  # incl. 0, ~pi/2
+            np.linspace(-0.3, 2.8, 23),  # arbitrary range, both drivens
             np.array([0.0, np.pi / 2, np.pi / 4, -np.pi / 2]),  # axis cases
         ],
+        ids=["half_circle", "arbitrary", "axes"],
     )
-    def test_matches_scatter_oracle(self, thetas):
-        from tomobar_tpu.ops import usfft_pallas
+    def test_matches_numpy_spreading(self, thetas):
         from tomobar_tpu.ops.usfft import usfft_grid
 
-        n = 128
+        n = 32
         rng = np.random.default_rng(5)
-        dre = jnp.asarray(
-            rng.standard_normal((2, thetas.size, n)), dtype=jnp.float32
-        )
-        dim = jnp.asarray(
-            rng.standard_normal((2, thetas.size, n)), dtype=jnp.float32
-        )
-        a_re, a_im = usfft_grid(dre, dim, n, thetas)
-        usfft_pallas._INTERPRET[0] = True
-        try:
-            b_re, b_im = usfft_pallas.usfft_grid_pallas(dre, dim, n, thetas)
-        finally:
-            usfft_pallas._INTERPRET[0] = False
-        ref = np.abs(np.asarray(a_re)).max()
-        # chip: the gridding matmul runs at MXU DEFAULT precision (bf16
-        # operands) vs the f32 XLA oracle
-        rt_, at_ = dev_tol((1e-4, 1e-5), (2e-2, 1.2e-2))
-        np.testing.assert_allclose(
-            np.asarray(b_re), np.asarray(a_re), rtol=rt_, atol=at_ * ref
-        )
-        np.testing.assert_allclose(
-            np.asarray(b_im), np.asarray(a_im), rtol=rt_, atol=at_ * ref
-        )
-
-    def test_small_n_raises(self):
-        from tomobar_tpu.ops.usfft_pallas import usfft_grid_pallas
-
-        d = jnp.zeros((2, 8, 64), dtype=jnp.float32)
-        with pytest.raises(ValueError):
-            usfft_grid_pallas(d, d, 64, np.linspace(0, 3, 8))
+        dre = rng.standard_normal((2, thetas.size, n)).astype(np.float32)
+        dim = rng.standard_normal((2, thetas.size, n)).astype(np.float32)
+        a_re, a_im = usfft_grid(jnp.asarray(dre), jnp.asarray(dim), n, thetas)
+        want = _spread_numpy(dre, dim, n, thetas)
+        got = np.asarray(a_re, np.float64) + 1j * np.asarray(a_im, np.float64)
+        rel = np.linalg.norm(got - want) / np.linalg.norm(want)
+        # float32 FFT + float32 weights against float64
+        assert rel < 1e-5, rel
 
 
 class TestClassicFilterBank:
@@ -307,13 +313,13 @@ class TestClassicFilterBank:
         yy, xx = np.mgrid[0:N, 0:N]
         m = np.hypot(yy - (N - 1) / 2, xx - (N - 1) / 2) < N / 2 - 2
         corr = np.corrcoef(rec[m], phantom2d[m])[0, 1]
-        assert corr > dev_tol(1.0, 0.96) * min_corr, f"{ftype}: corr {corr}"
+        assert corr > min_corr, f"{ftype}: corr {corr}"
         # amplitude calibration: with the pi*rfft(h) discrete ramp the LS
         # scale vs the phantom is ~0.97 for ram-lak/shepp (tight bound pins
         # the convention); hamming's window attenuates the midband that
         # carries much of the small phantom's energy (~0.68 at N=64)
         scale = float((rec[m] * phantom2d[m]).sum() / (phantom2d[m] ** 2).sum())
-        assert dev_tol(1.0, 0.93) * scale_lo < scale < 1.4, f"{ftype}: LS scale {scale}"
+        assert scale_lo < scale < 1.4, f"{ftype}: LS scale {scale}"
 
     def test_fbp_classic_3d_matches_2d_slices(self, phantom3d, sino3d, angles180):
         from tomobar_tpu import RecToolsDIR
@@ -391,7 +397,7 @@ class TestDeviceMemStackShapeMode:
 
 
 class TestStageAttributedMemory:
-    """Per-stage memory attribution (VERDICT r4 next-9): the chunk
+    """Per-stage memory attribution: the chunk
     heuristic's grid-buffer model is checked against XLA's own numbers
     instead of asserted."""
 
@@ -411,17 +417,14 @@ class TestStageAttributedMemory:
         assert r["stage_peak"] == max(
             s["total"] for s in r["stages"].values()
         )
-        # the chunk heuristic models the peak as 4 grid-sized f32 buffers
-        # per z-pair (ops/usfft._fourier_inv_memory_chunks); XLA measures
-        # 3.5 at the ifft2 stage -> the heuristic must stay within 25%
+        # the chunk heuristic models the peak as 4.5 complex grids per
+        # z-pair (ops/usfft._fourier_inv_memory_chunks); XLA measures 4.0
+        # at the ifft2 stage -> the heuristic must stay within 25%
         n = N + 2 * rt.geom.detectors_x_pad
         pairs = (nz + nz % 2) // 2
-        heuristic = 4 * 2 * (2 * n) * (2 * n) * 4.0 * pairs
+        heuristic = 4.5 * 2 * (2 * n) * (2 * n) * 4.0 * pairs
         ratio = heuristic / r["stage_peak"]
-        # CPU path: XLA measures 3.5 buffers at ifft2 -> within 25%.
-        # TPU path: more aggressive aliasing halves the measured peak
-        # (2.0 buffers) -> the heuristic stays a safe upper bound there.
-        hi = 2.2 if on_real_device() else 1.25
+        hi = 1.25
         assert 1.0 <= ratio <= hi, (heuristic, r["stage_peak"], ratio)
         # and the whole-pipeline total is also covered by the heuristic
         assert heuristic >= 0.95 * r["total"]

@@ -6,8 +6,6 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from conftest import on_real_device
-
 from tomobar_tpu.geometry import Geometry
 from tomobar_tpu.ops.projector import (
     Projector,
@@ -115,12 +113,8 @@ class TestAnalytic:
         g3 = make_geom(nz=4)
         p2 = np.asarray(radon_fp(jnp.asarray(sl), g2))
         p3 = np.asarray(radon_fp(jnp.asarray(vol), g3))
-        # the 2D input takes the row-packed kernel on chip: bf16x3-level
-        # differences vs the plain kernel (see conftest.on_real_device)
-        atol = 5e-4 * np.abs(p2).max() if on_real_device() else 1e-5
-        rtol = 1e-3 if on_real_device() else 1e-5
         for z in range(4):
-            np.testing.assert_allclose(p3[z], p2, rtol=rtol, atol=atol)
+            np.testing.assert_allclose(p3[z], p2, rtol=1e-5, atol=1e-5)
 
 
 class TestBlockwise:
@@ -140,12 +134,7 @@ class TestBlockwise:
                 gb = make_geom(nz=zb.shape[0])
                 parts.append(np.asarray(radon_bp(jnp.asarray(zb), gb)))
             rec = np.concatenate(parts, axis=0)
-            # block == 1 slabs take the packed kernel on chip
-            atol = (
-                5e-4 * np.abs(full).max() if on_real_device() else 1e-6
-            )
-            rtol = 1e-3 if on_real_device() else 1e-5
-            np.testing.assert_allclose(rec, full, rtol=rtol, atol=atol)
+            np.testing.assert_allclose(rec, full, rtol=1e-5, atol=1e-6)
 
 
 class TestOrderedSubsets:

@@ -129,7 +129,7 @@ class TestNormaliser:
 
     def test_dynamic_dffc_wavelet_denoiser(self):
         """dyn_denoiser='wavelet' routes eigen-flat-field denoising
-        through the Haar shrinkage (VERDICT r4 next-10; the built-in
+        through the Haar shrinkage (the built-in
         stand-in for the reference's optional BM3D)."""
         rng = np.random.default_rng(12)
         dety, nfr, detx = 16, 10, 24

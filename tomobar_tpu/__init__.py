@@ -1,10 +1,10 @@
-"""tomobar_tpu — TPU-native tomographic model-based reconstruction.
+"""tomobar_tpu — tomographic model-based reconstruction in JAX.
 
 A from-scratch JAX/XLA/Pallas framework with the capabilities of ToMoBAR
 (dkazanc/ToMoBAR): direct (FBP, Fourier) and regularised iterative (FISTA,
 ADMM, CGLS, SIRT, Landweber, OSEM) reconstruction of parallel-beam 2D/3D
-tomography data, designed for TPU meshes (sharded detY slabs x angle
-subsets) rather than single-GPU CUDA.
+tomography data on NVIDIA GPUs (Pallas kernels for the projector), one
+card or a device mesh (sharded detY slabs x angle subsets).
 
 Reference-compatible entry points:
 

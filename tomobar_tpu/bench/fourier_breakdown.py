@@ -1,4 +1,4 @@
-"""Per-stage timing + roofline audit of FOURIER_INV (the log-polar path).
+"""Per-stage timing of FOURIER_INV (the log-polar path).
 
 The reference sweats this path hardest (``fft_us_kernels.cu:105-527``'s
 centre-gather and angle-range pruning exist purely for speed;
@@ -7,23 +7,16 @@ needs per-stage evidence, like ``bench/breakdown.py`` provides for FISTA.
 
 Stages (ops/usfft.py pipeline, bench shape nz x nproj x N):
 
-* ``filter``  — STEP0 oversampled FBP filtering (forward+inverse split
-  FFT at ow = 2^ceil(log2(3N)) per (z, angle) row).
-* ``fft1d``   — STEP1 pack pairs + length-n split FFT + fftshift scale.
-* ``grid``    — STEP2 Pallas banded-matmul gridding onto (2n, 2n).
-* ``ifft2``   — STEP3 checkerboard + half-pixel ramp + split ifft2 at 2n.
-* ``unpad``   — STEP4 crop + phi multiply + pair unpack (HBM-bound).
+* ``filter``  — STEP0 oversampled FBP filtering (rfft/irfft at
+  ow = 2^ceil(log2(3N)) per (z, angle) row).
+* ``fft1d``   — STEP1 pack pairs + length-n FFT + fftshift scale.
+* ``grid``    — STEP1+2 ``usfft_grid``: the length-n FFT again plus the
+  Gaussian-kernel scatter-add onto (2n, 2n).
+* ``ifft2``   — STEP3 checkerboard + half-pixel ramp + ifft2 at 2n.
+* ``unpad``   — STEP4 crop + phi multiply + pair unpack (memory-bound,
+  reported against the card's memory bandwidth).
 
-For the split-FFT stages the work model counts the MACs the
-implementation actually executes — the Bailey four-step recursion over
-COMPLEX rows (``apply_freq_filter_real`` pair-packs two real rows per
-complex transform, so real-row counts are halved) — reported against the
-full bf16 MXU peak: the DFT matmuls run at DEFAULT precision (operands
-rounded to bf16, single MXU pass — see tests/test_fft_real.py), not as
-bf16x3 triples.  ``unpad``/elementwise stages report HBM GB/s.  The r4
-models double-counted filter rows and used a /3 peak, yielding
-impossible >1 utilisations (VERDICT r4 weak-1) — both fixed; a unit test
-(tests/test_bench_models.py) bounds every reported utilisation to (0, 1].
+The FFT stages run in cuFFT and report time only.
 
 Run:  python -m tomobar_tpu.bench.fourier_breakdown
 """
@@ -33,23 +26,7 @@ import os
 
 import numpy as np
 
-from tomobar_tpu.bench.breakdown import _HBM_PEAK, _MXU_PEAK, stage_report
-
-# DEFAULT-precision matmuls: one bf16 MXU pass per dot -> full bf16 peak
-_MXU_FFT_PEAK = _MXU_PEAK
-
-
-def _fft_macs_per_row(n: int) -> float:
-    """4 real-matmul MACs per complex split-DFT of length n (recursive
-    Bailey factorisation, mirrors ops/fft_real._fft_last)."""
-    from tomobar_tpu.ops.fft_real import _MAX_MATMUL_N, _best_split
-
-    if n <= _MAX_MATMUL_N:
-        return 4.0 * n * n
-    B, C = _best_split(n)
-    # B-point DFTs on C columns + twiddle + C-point DFTs on B rows
-    return (C * _fft_macs_per_row(B) + B * _fft_macs_per_row(C)
-            + 8.0 * n)  # twiddle FMA (4 mul + 4 add per complex point)
+from tomobar_tpu.bench.breakdown import peaks, stage_report
 
 
 def fourier_breakdown(N, nz, nproj, reps=5):
@@ -57,10 +34,11 @@ def fourier_breakdown(N, nz, nproj, reps=5):
     import jax.numpy as jnp
 
     from tomobar_tpu.bench.harness import time_fn
-    from tomobar_tpu.geometry import Geometry
     from tomobar_tpu.models.direct import RecToolsDIRTPU
     from tomobar_tpu.ops import usfft as U
+    from tomobar_tpu.ops.fft_real import fft_pairs
 
+    pk = peaks(jax.devices()[0].device_kind)
     angles = np.linspace(0, np.pi, nproj, endpoint=False).astype(np.float32)
     model = RecToolsDIRTPU(N, 0, nz, 0.0, angles, N)
     rng = np.random.default_rng(0)
@@ -84,8 +62,6 @@ def fourier_breakdown(N, nz, nproj, reps=5):
 
     def fft1d_fn(f):
         dre, dim = U._pack_pairs(f)
-        from tomobar_tpu.ops.fft_real import fft_pairs
-
         sre, sim = fft_pairs(dre, dim)
         sign = jnp.where(jnp.arange(n) % 2 == 1, 1.0, -1.0).astype(jnp.float32)
         return sre * (sign * (4.0 / n)), sim * (sign * (4.0 / n))
@@ -93,7 +69,7 @@ def fourier_breakdown(N, nz, nproj, reps=5):
     fft1d = jax.jit(fft1d_fn)
     dre, dim = jax.jit(lambda f: U._pack_pairs(f))(filtered)
     grid = jax.jit(
-        lambda r, i: U.usfft_grid_dispatch(r, i, n, theta, eps)
+        lambda r, i: U.usfft_grid(r, i, n, theta, eps)
     )
     fre, fim = grid(dre, dim)
     ifft2 = jax.jit(lambda r, i: U._ifft2_centered(r, i, n))
@@ -104,43 +80,27 @@ def fourier_breakdown(N, nz, nproj, reps=5):
 
     full = jax.jit(lambda d: U.fourier_inv(model, d))
 
-    # --- executed-work models ----------------------------------------------
-    # filter: apply_freq_filter_real pair-packs the nproj real rows of each
-    # z-slice into ceil(nproj/2) complex rows; forward + inverse transform
-    rows_filter = nz * ((nproj + 1) // 2)
-    filter_macs = rows_filter * 2 * _fft_macs_per_row(ow)
-    # fft1d: z-slice pairs packed to complex, one transform per (pair, proj)
-    rows_1d = (nz // 2) * nproj
-    fft1d_macs = rows_1d * _fft_macs_per_row(n)
     pairs = nz // 2
-    # ifft2: 2n-length transforms along both axes of a (2n, 2n) grid/pair
-    ifft2_macs = pairs * 2 * (2 * n) * _fft_macs_per_row(2 * n)
     unpad_bytes = pairs * 2 * (2 * n) * (2 * n) * 4 + nz * N * N * 4
 
     # --- measure ------------------------------------------------------------
     res = {}
     t = time_fn(filt, data, reps=reps)
-    res["filter"] = stage_report(
-        f"filter (ow={ow})", t, flops=2 * filter_macs, peak=_MXU_FFT_PEAK,
-        peak_name="MXUbf16",
-    )
-    t = time_fn(lambda d: fft1d(d), filtered, reps=reps)
-    res["fft1d"] = stage_report(
-        "pack + fft1d", t, flops=2 * fft1d_macs, peak=_MXU_FFT_PEAK,
-        peak_name="MXUbf16",
-    )
-    t = time_fn(lambda a: grid(*a), (dre, dim), reps=reps)
-    res["grid"] = stage_report("usfft gridding", t)
-    t = time_fn(lambda a: ifft2(*a), (fre, fim), reps=reps)
-    res["ifft2"] = stage_report(
-        f"ifft2 ({2*n}^2)", t, flops=2 * ifft2_macs, peak=_MXU_FFT_PEAK,
-        peak_name="MXUbf16",
-    )
-    t = time_fn(lambda a: unpad(*a), (gre, gim), reps=reps)
-    res["unpad"] = stage_report("unpad * phi", t, bytes_moved=unpad_bytes)
+    res["filter"] = stage_report(f"filter (ow={ow})", t, pk)
+    t = time_fn(fft1d, filtered, reps=reps)
+    res["fft1d"] = stage_report("pack + fft1d", t, pk)
+    t = time_fn(grid, dre, dim, reps=reps)
+    res["grid"] = stage_report("fft1d + usfft gridding", t, pk)
+    t = time_fn(ifft2, fre, fim, reps=reps)
+    res["ifft2"] = stage_report(f"ifft2 ({2*n}^2)", t, pk)
+    t = time_fn(unpad, gre, gim, reps=reps)
+    res["unpad"] = stage_report("unpad * phi", t, pk, bytes_moved=unpad_bytes)
     t = time_fn(full, data, reps=reps)
     res["total_ms"] = round(t * 1e3, 2)
-    ssum = sum(v["ms"] for v in res.values() if isinstance(v, dict))
+    # fft1d is contained in grid, so it stays out of the stage sum
+    ssum = sum(
+        v["ms"] for k, v in res.items() if isinstance(v, dict) and k != "fft1d"
+    )
     res["stage_sum_ms"] = round(ssum, 2)
     print(f"{'total':26s} {res['total_ms']:9.2f} ms   (stage sum {ssum:.2f})")
     out["stages"] = res
@@ -148,14 +108,9 @@ def fourier_breakdown(N, nz, nproj, reps=5):
 
 
 def main():
-    import jax
+    from tomobar_tpu.utils.compile_cache import enable_compile_cache
 
-    jax.config.update(
-        "jax_compilation_cache_dir", "/tmp/jax_cache_tomobar_bench"
-    )
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-
+    enable_compile_cache()
     N = int(os.environ.get("TOMOBAR_BENCH_N", 2560))
     nz = int(os.environ.get("TOMOBAR_BENCH_NZ", 8))
     nproj = int(os.environ.get("TOMOBAR_BENCH_NPROJ", 1801))

@@ -6,9 +6,9 @@ Weak scaling over the z (slab) axis: per-device work is held constant
 flat time-per-iteration and efficiency = t(1 device) / t(N devices).
 Parallel-beam slabs are independent (the reference's blockwise-consistency
 invariant), so the z axis carries no solver collectives and the measured
-loss is pure runtime/dispatch overhead — the honest proxy for the DCN axis
-on real pods, where this script runs unchanged under
-``jax.distributed`` (see ``parallel.sharding.distributed_init``).
+loss is pure runtime/dispatch overhead; across hosts the script runs
+unchanged under ``jax.distributed`` (see
+``parallel.sharding.distributed_init``).
 
 Run:  python -m tomobar_tpu.bench.scaling
 CPU smoke: JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
@@ -20,70 +20,12 @@ import os
 
 import numpy as np
 
-# Published per-chip bidirectional ICI bandwidths (override via env for
-# other chips): v5e 1600 Gbps = 200 GB/s, v5p 4800 Gbps = 600 GB/s.
-_ICI_GBS = {
-    "v5e": float(os.environ.get("TOMOBAR_ICI_V5E_GBS", "200")),
-    "v5p": float(os.environ.get("TOMOBAR_ICI_V5P_GBS", "600")),
-}
-
-
-def comm_model(
-    N, nz, os_number, t_outer_1chip_s, shard_counts=(2, 4, 8, 16),
-):
-    """Analytic collective-cost model for the angle (psum) axis.
-
-    Per outer FISTA-OS iteration the solver runs ``os_number`` BP calls
-    and each BP psums one full (nz, N, N) float32 volume of partial
-    backprojections per driven group (2 groups — ``ShardedProjector.
-    _bp_group``), so
-
-        bytes_psummed_per_outer = 2 * os_number * nz * N * N * 4.
-
-    A ring all-reduce over S shards moves ``2*(S-1)/S`` of the payload
-    through each chip's ICI, so with per-chip bandwidth ``B``:
-
-        t_psum(S) = bytes * 2*(S-1)/S / B
-        eff(S)    = (t_comp/S) / (t_comp/S + t_psum(S)).
-
-    The z (slab) axis carries NO solver collectives (parallel-beam slabs
-    are independent — the reference's blockwise-consistency invariant),
-    so multi-host z-sharding over DCN is predicted at ~1.0 efficiency
-    minus dispatch overhead; the angle axis is the intra-host (ICI) axis
-    this model prices.
-    """
-    vol_bytes = nz * N * N * 4
-    per_outer = 2 * os_number * vol_bytes
-    out = {
-        "bytes_psummed_per_outer": per_outer,
-        "psums_per_outer": 2 * os_number,
-        "psum_payload_bytes": vol_bytes,
-        "t_outer_1chip_s": t_outer_1chip_s,
-        "ici_gbs_assumed": dict(_ICI_GBS),
-        "derivation": (
-            "t_psum(S) = 2*OS*nz*N^2*4 * 2*(S-1)/S / B_ici; "
-            "eff(S) = (t1/S) / (t1/S + t_psum(S))"
-        ),
-        "predicted_pod_efficiency": {},
-    }
-    for chip, bw in _ICI_GBS.items():
-        per_chip = {}
-        for S in shard_counts:
-            t_psum = per_outer * 2 * (S - 1) / S / (bw * 1e9)
-            t_comp = t_outer_1chip_s / S
-            per_chip[f"angles={S}"] = round(t_comp / (t_comp + t_psum), 4)
-        per_chip["z=2_hosts(DCN)"] = 1.0  # no collectives on the z axis
-        out["predicted_pod_efficiency"][chip] = per_chip
-    return out
-
-
 def count_psums_in_step(n_a_devices, N, nz, nproj, os_number, tv_iters=2):
     """Compile the angle-sharded outer step and audit its all-reduces.
 
-    Validates that the compiled HLO moves the collective PAYLOAD the comm
-    model prices (2 full volumes per subset: one psum per driven group
-    per BP) — so the predicted_pod_efficiency numbers rest on the program
-    XLA actually emits, not on an assumption.  XLA's all-reduce combiner
+    Validates that the compiled HLO moves the collective payload the
+    design implies (2 full volumes per subset: one psum per driven group
+    per BP, ``ShardedProjector._bp_group``).  XLA's all-reduce combiner
     merges adjacent psums into tuple all-reduces, so the op COUNT is not
     meaningful; the audited quantities are the number of full-volume
     operands and the total reduced bytes (the model payload plus small
@@ -152,9 +94,9 @@ def run(N=None, nz_per_device=None, nproj=None, os_number=None, tv_iters=None):
     import jax
     import jax.numpy as jnp
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache_tomobar_bench")
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    from tomobar_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from jax.sharding import NamedSharding
     from tomobar_tpu.bench.harness import time_fn
@@ -204,7 +146,7 @@ def run(N=None, nz_per_device=None, nproj=None, os_number=None, tv_iters=None):
     def iter_rate_angles(n_a_devices: int) -> float:
         """Strong scaling over the angle (psum) axis: the global problem is
         fixed at nz_per_device slabs; each device projects its angle shard
-        of every subset and gradients reduce with psum over ICI."""
+        of every subset and gradients reduce with psum."""
         nz = nz_per_device
         geom = Geometry(
             detectors_x=N, detectors_y=nz, angles=angles, recon_size=N,
@@ -245,7 +187,7 @@ def run(N=None, nz_per_device=None, nproj=None, os_number=None, tv_iters=None):
     # core oversubscription (ideal is cores/N, not 1).  The throughput
     # ratio — total slab-iterations/s at N devices vs 1 device on the
     # SAME hardware — isolates the sharding/runtime overhead and is the
-    # honest CPU-proxy number; on real pods (1 device = 1 chip) the raw
+    # honest CPU-proxy number; on real GPUs (1 device = 1 card) the raw
     # efficiency is the metric.
     import multiprocessing
 
@@ -276,16 +218,9 @@ def run(N=None, nz_per_device=None, nproj=None, os_number=None, tv_iters=None):
         },
         "vs_baseline": round(eff / 0.8, 4),
     }
-    # analytic ICI model + HLO collective-count validation (VERDICT r4
-    # next-5): the >=80%-to-2-hosts north-star as a calculation
-    t1 = 1.0 / ra1 if ra1 > 0 else float("nan")
-    out["comm_model"] = comm_model(N, nz_per_device, os_number, round(t1, 4))
-    try:
-        out["comm_model"]["psum_count_check"] = count_psums_in_step(
-            min(n_dev, 8), N, nz_per_device, nproj, os_number
-        )
-    except Exception as e:  # pragma: no cover - diagnostic only
-        out["comm_model"]["psum_count_check"] = {"error": str(e)}
+    out["psum_count_check"] = count_psums_in_step(
+        min(n_dev, 8), N, nz_per_device, nproj, os_number
+    )
     print(json.dumps(out))
     return out
 

@@ -2,7 +2,7 @@
 residual modifiers).
 
 Equivalent of ``tomobar/data_fidelities.py:7-40`` expressed over the
-TPU-native projector pair.  ``b`` is post-log data for LS/PWLS/SWLS and
+projector pair.  ``b`` is post-log data for LS/PWLS/SWLS and
 pre-log raw counts for KL.
 
 The retired host class ``RecToolsIR`` (removed in reference v2026.3.0.0,

@@ -1,4 +1,4 @@
-"""Parallel-beam acquisition geometry for the TPU-native framework.
+"""Parallel-beam acquisition geometry.
 
 This replaces the reference's ASTRA vector-geometry plumbing
 (``tomobar/astra_wrappers/astra_base.py`` and ``tomobar/supp/funcs.py:22-65``)

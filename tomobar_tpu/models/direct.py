@@ -1,8 +1,8 @@
-"""Direct reconstruction classes (FBP, Fourier methods) — TPU-native.
+"""Direct reconstruction classes (FBP, Fourier methods).
 
 API-compatible equivalents of the reference's ``RecToolsDIR``
 (``tomobar/methodsDIR.py:18``) and ``RecToolsDIRCuPy``
-(``tomobar/methodsDIR_CuPy.py:26``).  On TPU there is no host/device class
+(``tomobar/methodsDIR_CuPy.py:26``).  On an accelerator there is no host/device class
 split: both classes run the same jitted XLA pipelines; ``RecToolsDIR``
 returns numpy arrays (host semantics) while ``RecToolsDIRCuPy`` returns
 device arrays (device semantics), so reference user code ports unchanged.
@@ -186,7 +186,7 @@ class RecToolsDIR:
         return self._maybe_np(rec)
 
     def FOURIER(self, data, **kwargs):
-        """2D Fourier-slice-theorem reconstruction, TPU-native.
+        """2D Fourier-slice-theorem reconstruction on the device.
 
         The reference implements this with host scipy ``griddata``
         interpolation of the polar Fourier samples (``methodsDIR.py:177-254``,

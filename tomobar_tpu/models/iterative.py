@@ -1,4 +1,4 @@
-"""Iterative reconstruction class with the three-dictionary API — TPU-native.
+"""Iterative reconstruction class with the three-dictionary API.
 
 API-compatible equivalent of the reference's ``RecToolsIRCuPy``
 (``tomobar/methodsIR_CuPy.py:36``): device-resident Landweber / SIRT /
@@ -96,10 +96,9 @@ class RecToolsIRTPU:
         # in the reference too, methodsIR_CuPy.py:331-332, so L is
         # fidelity-independent).  The reference recomputes the 15-iteration
         # power method on EVERY solver call without a user-supplied
-        # lipschitz_const (methodsIR_CuPy.py:371-372) — at production scale
-        # that is ~35% of a whole FISTA run (NORTHSTAR_r04: 20.5s of 51.2s);
-        # caching per instance is a legitimate beat-the-reference win for
-        # parameter sweeps and the warm-start production pattern.
+        # lipschitz_const (methodsIR_CuPy.py:371-372), which costs 15 FP+BP
+        # pairs per call; caching per instance saves that for parameter
+        # sweeps and the warm-start production pattern.
         self._lipschitz_cache: Optional[float] = None
 
     # ------------------------------------------------------------------ API
@@ -166,10 +165,10 @@ class RecToolsIRTPU:
             if d.get(k) is not None
         }
 
-    def _regul_fn(self, _regularisation_, layout: str = "zyx"):
+    def _regul_fn(self, _regularisation_):
         if _regularisation_.get("method") is None:
             return None
-        return lambda x: prox_regul(self, x, _regularisation_, layout=layout)
+        return lambda x: prox_regul(self, x, _regularisation_)
 
     def _step_key(self, method: str, d: dict, a: dict, r):
         """Hashable fingerprint of everything a verbose-mode outer step
@@ -292,7 +291,6 @@ class RecToolsIRTPU:
             nonnegativity=a["nonnegativity"],
             fidelity=d["data_fidelity"],
             regul_fn=self._regul_fn(r),
-            regul_fn_t=self._regul_fn(r, layout="t"),
             x0=x0,
             fid_kwargs=self._fid_kwargs(d),
             tolerance=a.get("tolerance", 0.0),
@@ -323,7 +321,6 @@ class RecToolsIRTPU:
             nonnegativity=a["nonnegativity"],
             fidelity=d["data_fidelity"],
             regul_fn=self._regul_fn(r),
-            regul_fn_t=self._regul_fn(r, layout="t"),
             x0=x0,
             fid_kwargs=self._fid_kwargs(d),
             tolerance=a.get("tolerance", 0.0),
@@ -345,7 +342,6 @@ class RecToolsIRTPU:
             d["projection_data"],
             iterations=a["iterations"],
             regul_fn=self._regul_fn(r),
-            regul_fn_t=self._regul_fn(r, layout="t"),
             x0=x0,
             normalisation_mode=a.get("osem_normalisation", "reference"),
         )

@@ -1,6 +1,6 @@
 // Native host-side preprocessing for tomobar_tpu.
 //
-// The TPU owns the reconstruction math (Pallas/XLA); this module owns the
+// The accelerator owns the reconstruction math (XLA/Pallas); this module owns the
 // host-side raw-data path that feeds it — the role CUDA/C++ plays in the
 // reference's stack (ToMoBAR's own normaliser is numpy,
 // tomobar/supp/suppTools.py:187-264, but it feeds from HTTomo's native IO

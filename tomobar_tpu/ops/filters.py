@@ -1,6 +1,6 @@
 """FBP filters: custom sinc filter and the LPRec higher-order filter bank.
 
-TPU-native re-implementation of the reference's filter synthesis:
+Re-implementation of the reference's filter synthesis:
 
 * sinc filter — closed-form frequency response matching
   ``tomobar/cuda_kernels/generate_filtersync.cu:5-82`` (device path,
@@ -8,7 +8,7 @@ TPU-native re-implementation of the reference's filter synthesis:
   (host path, fixed ``a = 1.1``):
   ``r(w) = |2/a * sin(a w / 2)| * (<sin(a w/2), a w/2> / <a w/2, a w/2>)^2``
   on the grid ``w = -pi + k * 2*pi/n``.  The pinv-of-a-row-vector trick in
-  the CUDA kernel is just that scalar ratio.  No Pallas kernel is needed:
+  the CUDA kernel is just that scalar ratio.  No custom kernel is needed:
   this is a tiny closed-form expression evaluated at trace time.
 
 * ``calc_filter`` — the LPRec filter bank (none/ramp/shepp/cosine/cosine2/
@@ -71,32 +71,13 @@ def filter_sino_sinc(sino: jnp.ndarray, cutoff: float = 0.35) -> jnp.ndarray:
     n_angles = sino.shape[-2]
     det_x = sino.shape[-1]
     half = sinc_filter_half(det_x, cutoff, 1.0 / n_angles)
-
-    from tomobar_tpu.ops.fft_real import (
-        apply_freq_filter_real,
-        use_native_complex_fft,
-    )
-
-    if use_native_complex_fft():
-        spec = jnp.fft.rfft(sino, axis=-1) * jnp.asarray(half)
-        return jnp.fft.irfft(spec, det_x, axis=-1).astype(sino.dtype)
-
-    # complex-free path: Hermitian-extend the real half filter and run the
-    # split-FFT filtering helper (TPU backends without complex64)
-    full = hermitian_extend_real(half, det_x)
-    squeeze = sino.ndim == 2
-    x = sino[None] if squeeze else sino
-    out = apply_freq_filter_real(x, jnp.asarray(full))
-    return (out[0] if squeeze else out).astype(sino.dtype)
+    return _apply_half_filter(sino, half)
 
 
-def hermitian_extend_real(half: np.ndarray, n: int) -> np.ndarray:
-    """Full-length (n,) spectrum of a REAL half filter (length n//2+1):
-    mirror the positive frequencies onto the negative half."""
-    full = np.empty(n, dtype=np.float32)
-    full[: n // 2 + 1] = half
-    full[n // 2 + 1 :] = half[1 : (n + 1) // 2][::-1]
-    return full
+def _apply_half_filter(sino: jnp.ndarray, half: np.ndarray) -> jnp.ndarray:
+    """rfft along detX, multiply by the real rfft-half filter, irfft."""
+    spec = jnp.fft.rfft(sino, axis=-1) * jnp.asarray(half)
+    return jnp.fft.irfft(spec, sino.shape[-1], axis=-1).astype(sino.dtype)
 
 
 CLASSIC_FILTER_TYPES = (
@@ -138,7 +119,7 @@ def classic_filter_half(
 ) -> np.ndarray:
     """Classic FBP filter bank on the rfft half-grid (length n//2+1).
 
-    TPU-native equivalent of the filter set the reference exposes through
+    Equivalent of the filter set the reference exposes through
     ASTRA's ``FBP_CUDA`` configuration (``tomobar/astra_wrappers/
     astra_base.py:351-356``: FilterType / FilterParameter / FilterD and the
     documented names ram-lak, shepp-logan, cosine, hamming, hann, tukey,
@@ -229,20 +210,7 @@ def filter_sino_classic(
     half = classic_filter_half(
         det_x, filter_type, filter_parameter, filter_d, 1.0 / n_angles
     )
-
-    from tomobar_tpu.ops.fft_real import (
-        apply_freq_filter_real,
-        use_native_complex_fft,
-    )
-
-    if use_native_complex_fft():
-        spec = jnp.fft.rfft(sino, axis=-1) * jnp.asarray(half)
-        return jnp.fft.irfft(spec, det_x, axis=-1).astype(sino.dtype)
-    full = hermitian_extend_real(half, det_x)
-    squeeze = sino.ndim == 2
-    x = sino[None] if squeeze else sino
-    out = apply_freq_filter_real(x, jnp.asarray(full))
-    return (out[0] if squeeze else out).astype(sino.dtype)
+    return _apply_half_filter(sino, half)
 
 
 def _wint(n: int, t: np.ndarray) -> np.ndarray:

@@ -1,9 +1,9 @@
-"""TPU-native parallel-beam Radon transform pair (FP / BP).
+"""Parallel-beam Radon transform pair (FP / BP).
 
 This module replaces the external ASTRA toolbox used by the reference
 (``tomobar/astra_wrappers/astra_base.py``: ``parallel_vec``/``parallel3d_vec``
 geometries executed through ``direct_FP3D``/``direct_BP3D``).  It is a
-from-scratch JAX/XLA design, not a port:
+from-scratch JAX design, not a port:
 
 * **Joseph's method, gather-only.**  The forward projector integrates each
   ray with one linear interpolation per crossed row (x-driven) or column
@@ -19,10 +19,19 @@ from-scratch JAX/XLA design, not a port:
   groups at trace time, so there is no data-dependent control flow inside
   jit.
 
-* **Memory-bounded scans.**  The row-sum (FP) and angle-sum (BP) are
-  ``lax.scan`` loops over fixed-size blocks so peak memory is controlled
-  independently of problem size (the structural analogue of the reference's
-  chunked CUDA loops).
+* **Two implementations of one operator, chosen by platform.**  The XLA
+  gather-and-scan path below (``_fp_driven``/``_bp_driven``) is the
+  reference and runs on CPUs; on NVIDIA GPUs the fused Pallas kernels of
+  :mod:`tomobar_tpu.ops.projector_triton` run instead.  The choice is
+  made by :func:`jax.lax.platform_dependent` when the program is lowered,
+  so a function jitted onto either kind of device gets its own path;
+  lowering for any other platform fails.  ``impl="xla"`` forces the
+  reference on any platform (cross-checks on the GPU); ``impl="interpret"``
+  runs the kernels in Pallas interpret mode (tests on the CPU).
+
+* **Memory-bounded scans.**  The reference's row-sum (FP) and angle-sum
+  (BP) are ``lax.scan`` loops over fixed-size blocks so peak memory is
+  controlled independently of problem size.
 
 Coordinate conventions are defined in :mod:`tomobar_tpu.geometry`.
 A detector cell ``t`` at angle ``theta`` sees the line
@@ -31,7 +40,6 @@ A detector cell ``t`` at angle ``theta`` sees the line
 
 from __future__ import annotations
 
-import math
 from functools import partial
 from typing import Optional, Tuple
 
@@ -40,43 +48,36 @@ import jax.numpy as jnp
 import numpy as np
 
 from tomobar_tpu.geometry import Geometry
+from tomobar_tpu.ops.projector_triton import joseph_bp, joseph_fp
 
 __all__ = [
     "radon_fp",
     "radon_bp",
     "forward_project",
     "back_project",
+    "fp_driven",
+    "bp_driven",
     "Projector",
-    "set_projector_backend",
 ]
 
-# ---------------------------------------------------------------------------
-# backend selection: "auto" uses the Pallas two-pass kernels on TPU and the
-# XLA gather path elsewhere; override with set_projector_backend() or the
-# TOMOBAR_TPU_PROJECTOR env var ("auto" | "pallas" | "xla").
-# ---------------------------------------------------------------------------
 
-import os as _os
+def _dispatch(impl: str, xla_fn, kernel_fn, *args):
+    """The projector's one dispatch rule.  ``impl="auto"``: the kernel on
+    NVIDIA GPUs, the XLA reference on CPUs, and lowering for any other
+    platform raises.  ``"xla"``: the reference everywhere.
+    ``"interpret"``: the kernel in interpret mode."""
+    if impl == "auto":
+        return jax.lax.platform_dependent(
+            *args, cpu=xla_fn, cuda=partial(kernel_fn, interpret=False)
+        )
+    if impl == "xla":
+        return xla_fn(*args)
+    if impl == "interpret":
+        return kernel_fn(*args, interpret=True)
+    raise ValueError(
+        f"impl must be 'auto', 'xla' or 'interpret', got {impl!r}"
+    )
 
-_BACKEND = _os.environ.get("TOMOBAR_TPU_PROJECTOR", "auto")
-
-
-def set_projector_backend(name: str) -> None:
-    """Select the projector implementation: "auto", "pallas" or "xla"."""
-    global _BACKEND
-    if name not in ("auto", "pallas", "xla"):
-        raise ValueError(f"unknown projector backend {name!r}")
-    _BACKEND = name
-
-
-def _use_pallas() -> bool:
-    if _BACKEND == "xla":
-        return False
-    from tomobar_tpu.ops.projector_pallas import pallas_available
-
-    if _BACKEND == "pallas":
-        return True
-    return pallas_available()
 
 # Target size (elements) for gather intermediates inside the scan loops.
 _BLOCK_BUDGET_ELEMS = 16 * 1024 * 1024
@@ -112,13 +113,10 @@ def _fp_driven(
     cor_v: np.ndarray,
     det_x: int,
     y_block: Optional[int] = None,
-    varying: tuple = (),
 ) -> jnp.ndarray:
     """Joseph x-driven FP for angles with |cos| >= |sin|.
 
     vol: (nz, ny, nx) float32. Returns (nz, n_ang, det_x).
-    ``varying``: mesh axis names to mark the scan carry as varying over
-    when called inside shard_map (keeps check_vma enabled there).
     """
     nz, ny, nx = vol.shape
     n_ang = int(np.size(cos_v))
@@ -163,8 +161,6 @@ def _fp_driven(
         return acc + jnp.sum(contrib, axis=2), None
 
     acc0 = jnp.zeros((nz, n_ang, det_x), dtype=dtype)
-    if varying:
-        acc0 = jax.lax.pvary(acc0, varying)
     acc, _ = jax.lax.scan(body, acc0, jnp.arange(n_blocks))
     return acc * jnp.abs(inv_c)[None, :, None]
 
@@ -177,12 +173,10 @@ def _bp_driven(
     ny: int,
     nx: int,
     ang_block: Optional[int] = None,
-    varying: tuple = (),
 ) -> jnp.ndarray:
     """Exact adjoint of :func:`_fp_driven`.
 
     sino: (nz, A, det_x) float32. Returns (nz, ny, nx).
-    ``varying``: mesh axes for the scan carry inside shard_map.
     """
     nz, n_ang, det_x = sino.shape
     dtype = sino.dtype
@@ -237,8 +231,6 @@ def _bp_driven(
         return acc + part, None
 
     acc0 = jnp.zeros((nz, ny, nx), dtype=dtype)
-    if varying:
-        acc0 = jax.lax.pvary(acc0, varying)
     acc, _ = jax.lax.scan(body, acc0, jnp.arange(n_blocks))
     return acc
 
@@ -283,24 +275,24 @@ def _vshift_sino(sino: jnp.ndarray, dz: np.ndarray) -> jnp.ndarray:
     )
 
 
-def radon_fp(vol: jnp.ndarray, geom: Geometry) -> jnp.ndarray:
+def radon_fp(
+    vol: jnp.ndarray, geom: Geometry, impl: str = "auto"
+) -> jnp.ndarray:
     """Forward-project a volume.  vol (nz, n, n) or (n, n) -> sino
-    (nz, n_angles, det_x_total) or (n_angles, det_x_total)."""
-    dzv = geom.cor_vertical
-    if dzv is not None and vol.ndim == 3 and np.any(dzv):
-        return _vshift_sino(_radon_fp_core(vol, geom), dzv)
-    return _radon_fp_core(vol, geom)
-
-
-def _radon_fp_core(vol: jnp.ndarray, geom: Geometry) -> jnp.ndarray:
-    if _use_pallas():
-        from tomobar_tpu.ops.projector_pallas import radon_fp_pallas
-
-        return radon_fp_pallas(vol, geom)
+    (nz, n_angles, det_x_total) or (n_angles, det_x_total).  ``impl``: see
+    :func:`_dispatch`."""
     squeeze = vol.ndim == 2
-    if squeeze:
-        vol = vol[None]
-    vol = vol.astype(jnp.float32)
+    vol = (vol[None] if squeeze else vol).astype(jnp.float32)
+    sino = _dispatch(
+        impl, partial(_fp_xla, geom=geom), partial(_fp_kernel, geom=geom), vol
+    )
+    dzv = geom.cor_vertical
+    if dzv is not None and not squeeze and np.any(dzv):
+        sino = _vshift_sino(sino, dzv)
+    return sino[0] if squeeze else sino
+
+
+def _fp_xla(vol: jnp.ndarray, geom: Geometry) -> jnp.ndarray:
     angles = geom.angles
     cor = geom.cor_horizontal
     det_x = geom.detectors_x_total
@@ -318,30 +310,52 @@ def _radon_fp_core(vol: jnp.ndarray, geom: Geometry) -> jnp.ndarray:
             vol.swapaxes(1, 2), sin_v[idx_y], cos_v[idx_y], cor[idx_y], det_x
         )
         out = out.at[:, idx_y, :].set(py)
-    return out[0] if squeeze else out
+    return out
 
 
-def radon_bp(sino: jnp.ndarray, geom: Geometry) -> jnp.ndarray:
+def _driven_tables(angles: np.ndarray):
+    """float32 (cos, sin) of every angle and its driven-frame (cos_d, sin_d):
+    the pair itself for x-driven angles, swapped for y-driven ones — the
+    values the XLA reference computes with."""
+    cos_v = np.cos(angles).astype(np.float32)
+    sin_v = np.sin(angles).astype(np.float32)
+    ydrive = np.abs(np.cos(angles)) < np.abs(np.sin(angles))
+    cos_d = np.where(ydrive, sin_v, cos_v)
+    sin_d = np.where(ydrive, cos_v, sin_v)
+    return cos_v, sin_v, cos_d, sin_d, ydrive
+
+
+def _fp_kernel(vol: jnp.ndarray, geom: Geometry, interpret: bool):
+    _, _, cos_d, sin_d, ydrive = _driven_tables(geom.angles)
+    vol_t = jnp.swapaxes(vol, 1, 2) if ydrive.any() else vol
+    return joseph_fp(
+        vol, vol_t, jnp.asarray(sin_d), jnp.asarray(np.float32(1.0) / cos_d),
+        jnp.asarray(geom.cor_horizontal), ydrive,
+        geom.detectors_x_total, interpret=interpret,
+    )
+
+
+def radon_bp(
+    sino: jnp.ndarray, geom: Geometry, impl: str = "auto"
+) -> jnp.ndarray:
     """Back-project a sinogram (exact adjoint of :func:`radon_fp`).
 
     sino (nz, n_angles, det_x_total) or 2D -> vol (nz, n, n) or (n, n).
-    The output slice size is ``geom.recon_size``.
+    The output slice size is ``geom.recon_size``.  ``impl``: see
+    :func:`_dispatch`.
     """
-    dzv = geom.cor_vertical
-    if dzv is not None and sino.ndim == 3 and np.any(dzv):
-        sino = _vshift_sino(sino, -np.asarray(dzv))
-    return _radon_bp_core(sino, geom)
-
-
-def _radon_bp_core(sino: jnp.ndarray, geom: Geometry) -> jnp.ndarray:
-    if _use_pallas():
-        from tomobar_tpu.ops.projector_pallas import radon_bp_pallas
-
-        return radon_bp_pallas(sino, geom)
     squeeze = sino.ndim == 2
-    if squeeze:
-        sino = sino[None]
-    sino = sino.astype(jnp.float32)
+    sino = (sino[None] if squeeze else sino).astype(jnp.float32)
+    dzv = geom.cor_vertical
+    if dzv is not None and not squeeze and np.any(dzv):
+        sino = _vshift_sino(sino, -np.asarray(dzv))
+    vol = _dispatch(
+        impl, partial(_bp_xla, geom=geom), partial(_bp_kernel, geom=geom), sino
+    )
+    return vol[0] if squeeze else vol
+
+
+def _bp_xla(sino: jnp.ndarray, geom: Geometry) -> jnp.ndarray:
     angles = geom.angles
     cor = geom.cor_horizontal
     n = geom.recon_size
@@ -359,7 +373,55 @@ def _radon_bp_core(sino: jnp.ndarray, geom: Geometry) -> jnp.ndarray:
             sino[:, idx_y, :], sin_v[idx_y], cos_v[idx_y], cor[idx_y], n, n
         )
         vol = vol + voly.swapaxes(1, 2)
-    return vol[0] if squeeze else vol
+    return vol
+
+
+def _bp_kernel(sino: jnp.ndarray, geom: Geometry, interpret: bool):
+    cos_v, sin_v, cos_d, _, _ = _driven_tables(geom.angles)
+    n = geom.recon_size
+    return joseph_bp(
+        sino, jnp.asarray(cos_v), jnp.asarray(sin_v),
+        jnp.asarray(np.abs(np.float32(1.0) / cos_d)),
+        jnp.asarray(geom.cor_horizontal), n, n, interpret=interpret,
+    )
+
+
+# ---------------------------------------------------------------------------
+# one driven group with its angle tables as data (one shard's work in
+# tomobar_tpu.parallel.sharding): same platform rule as radon_fp/radon_bp
+# ---------------------------------------------------------------------------
+
+
+def fp_driven(vol, cos_d, sin_d, cor, det_x: int, impl: str = "auto"):
+    """FP of an angle group that is x-driven in the (cos_d, sin_d) frame
+    (callers pass a y-driven group with the volume transposed and the pair
+    swapped).  Tables are (A,) float32 arrays; returns (nz, A, det_x)."""
+
+    def kernel(v, c, s, r, interpret):
+        return joseph_fp(
+            v, v, s, 1.0 / c, r, np.zeros(c.shape, bool), det_x,
+            interpret=interpret,
+        )
+
+    return _dispatch(
+        impl, partial(_fp_driven, det_x=det_x), kernel, vol, cos_d, sin_d,
+        cor,
+    )
+
+
+def bp_driven(sino, cos_d, sin_d, cor, ny: int, nx: int, impl: str = "auto"):
+    """Adjoint of :func:`fp_driven`: (nz, A, det_x) -> (nz, ny, nx) in the
+    group's driven frame."""
+
+    def kernel(g, c, s, r, interpret):
+        return joseph_bp(
+            g, c, s, jnp.abs(1.0 / c), r, ny, nx, interpret=interpret
+        )
+
+    return _dispatch(
+        impl, partial(_bp_driven, ny=ny, nx=nx), kernel, sino, cos_d, sin_d,
+        cor,
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -367,33 +429,33 @@ def _radon_bp_core(sino: jnp.ndarray, geom: Geometry) -> jnp.ndarray:
 # ---------------------------------------------------------------------------
 
 
-@partial(jax.custom_vjp, nondiff_argnums=(1,))
-def forward_project(vol, geom: Geometry):
-    return radon_fp(vol, geom)
+@partial(jax.custom_vjp, nondiff_argnums=(1, 2))
+def forward_project(vol, geom: Geometry, impl: str = "auto"):
+    return radon_fp(vol, geom, impl)
 
 
-def _fp_fwd(vol, geom):
-    return radon_fp(vol, geom), None
+def _fp_fwd(vol, geom, impl):
+    return radon_fp(vol, geom, impl), None
 
 
-def _fp_bwd(geom, _, ct):
-    return (radon_bp(ct, geom),)
+def _fp_bwd(geom, impl, _, ct):
+    return (radon_bp(ct, geom, impl),)
 
 
 forward_project.defvjp(_fp_fwd, _fp_bwd)
 
 
-@partial(jax.custom_vjp, nondiff_argnums=(1,))
-def back_project(sino, geom: Geometry):
-    return radon_bp(sino, geom)
+@partial(jax.custom_vjp, nondiff_argnums=(1, 2))
+def back_project(sino, geom: Geometry, impl: str = "auto"):
+    return radon_bp(sino, geom, impl)
 
 
-def _bp_fwd(sino, geom):
-    return radon_bp(sino, geom), None
+def _bp_fwd(sino, geom, impl):
+    return radon_bp(sino, geom, impl), None
 
 
-def _bp_bwd(geom, _, ct):
-    return (radon_fp(ct, geom),)
+def _bp_bwd(geom, impl, _, ct):
+    return (radon_fp(ct, geom, impl),)
 
 
 back_project.defvjp(_bp_fwd, _bp_bwd)
@@ -407,81 +469,36 @@ back_project.defvjp(_bp_fwd, _bp_bwd)
 class Projector:
     """Operator pair A / A^T for a fixed geometry, with OS subsets.
 
-    This is the TPU-native replacement for the reference's
-    ``AstraTools2D/3D`` classes (``astra_tools2d.py:8``,
-    ``astra_tools3d.py:19``): it owns the per-subset geometries and exposes
-    ``fp``/``bp`` plus ``fp_sub``/``bp_sub`` for ordered subsets.
+    The replacement for the reference's ``AstraTools2D/3D`` classes
+    (``astra_tools2d.py:8``, ``astra_tools3d.py:19``): it owns the
+    per-subset geometries and exposes ``fp``/``bp`` plus ``fp_sub``/
+    ``bp_sub`` for ordered subsets.  ``impl`` selects the implementation
+    (:func:`_dispatch`): ``"xla"`` runs the reference on every platform,
+    for cross-checks on a GPU.
     """
 
-    def __init__(self, geom: Geometry):
+    def __init__(self, geom: Geometry, impl: str = "auto"):
         self.geom = geom
+        self.impl = impl
         self.subset_indices = geom.os_indices()
         self._sub_geoms = [geom.subset(ind) for ind in self.subset_indices]
 
     # full operators ---------------------------------------------------------
     def fp(self, vol: jnp.ndarray) -> jnp.ndarray:
-        return radon_fp(vol, self.geom)
+        return radon_fp(vol, self.geom, self.impl)
 
     def bp(self, sino: jnp.ndarray) -> jnp.ndarray:
-        return radon_bp(sino, self.geom)
+        return radon_bp(sino, self.geom, self.impl)
 
     # OS subset operators ----------------------------------------------------
     def fp_sub(self, vol: jnp.ndarray, sub: int) -> jnp.ndarray:
-        return radon_fp(vol, self._sub_geoms[sub])
+        return radon_fp(vol, self._sub_geoms[sub], self.impl)
 
     def bp_sub(self, sino: jnp.ndarray, sub: int) -> jnp.ndarray:
-        return radon_bp(sino, self._sub_geoms[sub])
+        return radon_bp(sino, self._sub_geoms[sub], self.impl)
 
     def sino_subset(self, sino: jnp.ndarray, sub: int) -> jnp.ndarray:
         ind = self.subset_indices[sub]
         if sino.ndim == 2:
             return sino[ind, :]
         return sino[:, ind, :]
-
-    # t-layout view -----------------------------------------------------------
-    def supports_t(self) -> bool:
-        """True when the t-layout view (:meth:`t_view`) is the fast path:
-        the Pallas kernels are active, so volumes as (ny, nz, nx) and
-        sinograms as (angles, nz, det) skip the per-call layout transposes
-        (~5 ms per FP+BP pair at production sizes on v5e)."""
-        return _use_pallas()
-
-    def t_view(self) -> "_TProjector":
-        return _TProjector(self)
-
-
-class _TProjector:
-    """t-layout view of a :class:`Projector`: the same operator pair with
-    volumes as ``(ny, nz, nx)`` and sinograms as ``(angles, nz, det_x)`` —
-    the Pallas kernels' native layouts.  Exposes the same ``fp``/``bp``/
-    ``fp_sub``/``bp_sub``/``sino_subset`` surface so the solver bodies and
-    :func:`tomobar_tpu.fidelity.grad_data_term` run unchanged on t-layout
-    state."""
-
-    def __init__(self, p: Projector):
-        self.geom = p.geom
-        self.subset_indices = p.subset_indices
-        self._sub_geoms = p._sub_geoms
-
-    def fp(self, vol_t: jnp.ndarray) -> jnp.ndarray:
-        from tomobar_tpu.ops.projector_pallas import radon_fp_pallas_t
-
-        return radon_fp_pallas_t(vol_t, self.geom)
-
-    def bp(self, sino_t: jnp.ndarray) -> jnp.ndarray:
-        from tomobar_tpu.ops.projector_pallas import radon_bp_pallas_t
-
-        return radon_bp_pallas_t(sino_t, self.geom)
-
-    def fp_sub(self, vol_t: jnp.ndarray, sub: int) -> jnp.ndarray:
-        from tomobar_tpu.ops.projector_pallas import radon_fp_pallas_t
-
-        return radon_fp_pallas_t(vol_t, self._sub_geoms[sub])
-
-    def bp_sub(self, sino_t: jnp.ndarray, sub: int) -> jnp.ndarray:
-        from tomobar_tpu.ops.projector_pallas import radon_bp_pallas_t
-
-        return radon_bp_pallas_t(sino_t, self._sub_geoms[sub])
-
-    def sino_subset(self, sino_t: jnp.ndarray, sub: int) -> jnp.ndarray:
-        return sino_t[self.subset_indices[sub]]

@@ -1,4 +1,4 @@
-"""Fourier direct inversion on unequally-spaced grids (USFFT), TPU-native.
+"""Fourier direct inversion on unequally-spaced grids (USFFT).
 
 Re-implementation of the reference's ``FOURIER_INV``
 (``tomobar/methodsDIR_CuPy.py:152-989`` + ``cuda_kernels/fft_us_kernels.cu``,
@@ -7,23 +7,19 @@ real z-slices into one (re, im) pair, 1-D FFT along detX, spread each polar
 frequency sample onto a 2n x 2n Cartesian grid with a Gaussian kernel,
 2-D inverse FFT, then crop and multiply by the deconvolution factor phi.
 
-TPU-first notes:
+Implementation notes:
 
-* **No complex dtype anywhere.**  The deployment TPU runtime has no
-  complex64 support at all, so the whole pipeline carries explicit
-  (re, im) float32 pairs and all FFTs go through
-  :mod:`tomobar_tpu.ops.fft_real` (split-complex Bailey four-step on the
-  MXU).  This replaces the reference's cuFFT plans and complex kernels.
+* The pipeline carries explicit (re, im) float32 pairs; the FFTs run
+  through ``jnp.fft`` (:mod:`tomobar_tpu.ops.fft_real`), i.e. cuFFT on a
+  GPU, in place of the reference's cuFFT plans.
 * All fftshifts are sign-flip multiplies, exactly like the reference's
   ``r2c_c1dfftshift``/``c1dfftshift``/``c2dfftshift`` kernels.
 * The two-slices-per-complex packing is kept (halves the FFT count).
-* The frequency-domain spreading has two implementations: the XLA
-  scatter-add oracle in this module (deterministic, no atomics; two real
-  scatters over the (2m+1)^2 footprint) and the banded-matmul Pallas
-  fast path in :mod:`tomobar_tpu.ops.usfft_pallas` (the TPU equivalent
-  of ``gather_kernel_center`` + ``angle_based_prune``).  Dispatch is
-  automatic on TPU; override with the ``TOMOBAR_TPU_USFFT`` env var
-  ("auto" | "pallas" | "xla").
+* The frequency-domain spreading is an XLA scatter-add: two real scatters
+  per footprint offset over the (2m+1)^2 footprint (the equivalent of
+  ``gather_kernel_center``).  On a GPU XLA lowers the scatter-add to
+  atomics, so the summation order — and the last bits of the result —
+  change from run to run; on the CPU it is deterministic.
 
 Behavioural quirk preserved from the reference (documented per SURVEY §7):
 with the reference's ``calc_filter`` amplitudes the output is a factor
@@ -47,38 +43,12 @@ import numpy as np
 from tomobar_tpu.ops.fft_real import (
     apply_freq_filter_real,
     fft_pairs,
+    ifft2_pairs,
 )
 from tomobar_tpu.ops.filters import calc_filter_np
 from tomobar_tpu.utils.tools import check_kwargs, data_dims_swapper
 
-__all__ = ["fourier_inv", "usfft_grid", "usfft_grid_dispatch"]
-
-import os as _os
-
-_USFFT_BACKEND = _os.environ.get("TOMOBAR_TPU_USFFT", "auto")
-
-
-def set_usfft_backend(name: str) -> None:
-    """Select the gridding implementation: "auto", "pallas" or "xla"."""
-    global _USFFT_BACKEND
-    if name not in ("auto", "pallas", "xla"):
-        raise ValueError(f"unknown usfft backend {name!r}")
-    _USFFT_BACKEND = name
-
-
-def usfft_grid_dispatch(data_re, data_im, n, theta, eps=1e-4):
-    """Route to the Pallas banded-matmul gridding on TPU (n >= 128),
-    otherwise the XLA scatter oracle."""
-    use_pallas = _USFFT_BACKEND == "pallas"
-    if _USFFT_BACKEND == "auto" and n >= 128:
-        from tomobar_tpu.ops.projector_pallas import pallas_available
-
-        use_pallas = pallas_available()
-    if use_pallas:
-        from tomobar_tpu.ops.usfft_pallas import usfft_grid_pallas
-
-        return usfft_grid_pallas(data_re, data_im, n, theta, eps)
-    return usfft_grid(data_re, data_im, n, theta, eps)
+__all__ = ["fourier_inv", "usfft_grid"]
 
 
 def _fbp_filter_stage(
@@ -96,8 +66,7 @@ def _fbp_filter_stage(
     Mirrors ``_fbp_filtering`` (``methodsDIR_CuPy.py:449-545``): edge-pad to
     the oversampled width, multiply the spectrum by ``calc_filter`` x the
     CoR phase ramp, inverse transform and crop the centred ``width`` window.
-    Complex-free: the Hermitian filter spectrum is built full-length on the
-    host and applied with the split-FFT pair-packing helper.
+    The Hermitian filter spectrum is built full-length on the host.
     """
     if power_of_2_oversampling:
         ow = 2 ** math.ceil(math.log2(raw_width * 3))
@@ -117,7 +86,7 @@ def _fbp_filter_stage(
     w_full[ow // 2 + 1 :] = half[1 : (ow + 1) // 2][::-1]
     w_full = w_full * np.exp(-2j * np.pi * t * rotation_axis)
     # exact Hermitian symmetry: DC/Nyquist bins must be real (irfft drops
-    # their imaginary parts; the pair-packed helper requires it)
+    # their imaginary parts)
     w_full[0] = w_full[0].real
     w_full[ow // 2] = w_full[ow // 2].real
     w_re = w_full.real.astype(np.float32)
@@ -221,13 +190,6 @@ def _ifft2_centered(
     pixel n/2 while our projector (like ASTRA) centres it at (n-1)/2; the
     shift aligns FOURIER_INV output with FBP/iterative output on the same
     grid (the reference's two paths disagree by this half pixel).
-
-    Returns the inverse image TRANSPOSED in its last two axes: both 1-D
-    passes run through the fused axis-(-2) kernel (2.9x the XLA row pass
-    on a v5e) with a single interposed transpose, and every downstream
-    factor — the checker sign, phi, and the centred crop — is symmetric,
-    so orientation is restored on the small cropped volume instead
-    (``_unpad_mul_phi``).
     """
     two_n = 2 * n
     i = jnp.arange(two_n)
@@ -248,14 +210,8 @@ def _ifft2_centered(
             fre * ramp_re - fim * ramp_im,
             fre * ramp_im + fim * ramp_re,
         )
-    from tomobar_tpu.ops.fft_real import _fft_axis2
-
-    fre, fim = _fft_axis2(fre, fim, +1)
-    fre = jnp.swapaxes(fre, -1, -2)
-    fim = jnp.swapaxes(fim, -1, -2)
-    fre, fim = _fft_axis2(fre, fim, +1)
-    s = 1.0 / (two_n * two_n)
-    return fre * (s * checker), fim * (s * checker)
+    fre, fim = ifft2_pairs(fre, fim)
+    return fre * checker, fim * checker
 
 
 def _unpad_mul_phi(
@@ -271,11 +227,6 @@ def _unpad_mul_phi(
 ) -> jnp.ndarray:
     """STEP4: crop to recon size, multiply by phi, unpack (re, im) -> 2 real
     slices (``unpadding_mul_phi``, ``fft_us_kernels.cu:611-657``).
-
-    The incoming grids are TRANSPOSED in their last two axes (see
-    ``_ifft2_centered``); the centred crop window and phi are symmetric,
-    so the orientation is restored here on the small cropped volume —
-    a ~40x cheaper transpose than on the (2n, 2n) grids.
     """
     odd_recon = bool(recon_size % 2)
     unpad_z = nz - int(odd_vert)
@@ -292,8 +243,17 @@ def _unpad_mul_phi(
     )
     phi = jnp.asarray(phi2d, dtype=jnp.float32)
     out = jnp.stack([sl_re * phi, sl_im * phi], axis=1).reshape(-1, size, size)
-    out = jnp.swapaxes(out, -1, -2)
     return out[:unpad_z]
+
+
+def _default_mem_budget() -> float:
+    """Half of the default device's memory limit, in bytes."""
+    stats = jax.devices()[0].memory_stats()
+    if not stats or "bytes_limit" not in stats:
+        raise RuntimeError(
+            "the device reports no memory limit; pass mem_budget_gb"
+        )
+    return 0.5 * float(stats["bytes_limit"])
 
 
 def _fourier_inv_memory_chunks(
@@ -304,13 +264,14 @@ def _fourier_inv_memory_chunks(
     Honours the reference's memory-tuning kwargs (``methodsDIR_CuPy.py:
     179-237``): an explicit ``chunk_count`` wins; ``min_mem_usage_filter``
     / ``min_mem_usage_ifft2`` True selects a chunk count that keeps the
-    dominant transient under ``mem_budget_gb`` (default 8, half a v5e's
-    HBM).  The transient model is 4 grid-sized f32 buffers per z-pair:
-    XLA's own memory analysis attributes the high-water mark to the
-    ifft2 stage at exactly 3.5 such buffers (in re/im + out re/im + 1.5
-    working set), measured stably across sizes via
-    ``utils.memest.estimate_fourier_inv_memory(per_stage=True)``; 4
-    leaves ~14% headroom (a test pins the heuristic within 25% of the
+    dominant transient under ``mem_budget_gb`` (default: half of the
+    device memory JAX may use, ``memory_stats()["bytes_limit"]``).  The
+    transient model is 4.5 (2n, 2n) complex grids per z-pair: XLA's own
+    memory analysis attributes the high-water mark to the ifft2 stage at
+    4.0 such grids (the (re, im) input pair, its complex64 copy and the
+    complex output), measured via
+    ``utils.memest.estimate_fourier_inv_memory(per_stage=True)``; 4.5
+    leaves ~12% headroom (a test pins the heuristic within 25% of the
     measured stage peak).  Launch-shape-only kwargs (block_dim*,
     *_chunk_count) remain accepted and ignored.
     """
@@ -321,8 +282,9 @@ def _fourier_inv_memory_chunks(
             return 1
         return min(chunk_count, max(nz // 2, 1))
     if kwargs.get("min_mem_usage_filter") or kwargs.get("min_mem_usage_ifft2"):
-        budget = float(kwargs.get("mem_budget_gb", 8.0)) * 1e9
-        per_pair = 4 * 2 * (2 * n) * (2 * n) * 4.0
+        gb = kwargs.get("mem_budget_gb")
+        budget = _default_mem_budget() if gb is None else float(gb) * 1e9
+        per_pair = 4.5 * 2 * (2 * n) * (2 * n) * 4.0
         pairs_per_chunk = max(int(budget // per_pair), 1)
         return max(-(-(nz // 2) // pairs_per_chunk), 1)
     return 1
@@ -338,7 +300,7 @@ def fourier_inv(model, data, **kwargs) -> jnp.ndarray:
     a chunk count from ``mem_budget_gb`` (see
     :func:`_fourier_inv_memory_chunks`).  Kwargs that only control CUDA
     launch shapes (block_dim*, filter_*_chunk_count, center_size) are
-    accepted for API compatibility and ignored — XLA/Pallas schedule the
+    accepted for API compatibility and ignored — XLA schedules the
     equivalent stages.
     """
     cutoff_freq = kwargs.get("cutoff_freq")
@@ -411,7 +373,7 @@ def fourier_inv(model, data, **kwargs) -> jnp.ndarray:
             kwargs.get("oversampling_level", 4),
         )
         dre, dim = _pack_pairs(filtered)
-        fre, fim = usfft_grid_dispatch(dre, dim, n, theta, eps)
+        fre, fim = usfft_grid(dre, dim, n, theta, eps)
         fre, fim = _ifft2_centered(fre, fim, n)
         return _unpad_mul_phi(
             fre, fim, n, nproj, block_nz, odd_horiz, trailing_odd,

@@ -131,5 +131,5 @@ class ShardedDirect:
             mesh=self.mesh,
             in_specs=P("z", None, None),
             out_specs=P("z", None, None),
-            check_vma=False,  # pallas USFFT gridding carries no vma
+            check_vma=False,  # the gridding scan's zero carry is not marked varying
         )(data)

@@ -9,12 +9,12 @@ one-process-per-GPU.  Here distribution is a first-class framework layer:
   blockwise-consistency tests); the angle axis shards the projection/
   backprojection work per slab, with a ``psum`` over the angle axis
   reducing partial backprojections.
-* collectives are XLA's native ICI/DCN collectives inserted by
-  ``shard_map`` — no NCCL/MPI analogue needed.
+* collectives are XLA's native collectives inserted by ``shard_map``
+  (NCCL on GPUs) — no MPI analogue needed.
 * **multi-host**: :func:`distributed_init` + :func:`make_mesh` lay the z
-  axis process-major, so slabs split across hosts over DCN (no inter-host
-  collectives in the solver loop) and the angle psum rides ICI within
-  each host.
+  axis process-major, so slabs split across hosts (no inter-host
+  collectives in the solver loop) and the angle psum stays within each
+  host.
 * **uniform SPMD**: shard_map requires one program for every device, so
   instead of switching between per-shard geometries (compiles every
   branch into every device's program), angles are globally partitioned
@@ -41,10 +41,9 @@ from jax import shard_map
 from tomobar_tpu.geometry import Geometry
 from tomobar_tpu.ops.projector import (
     _angle_partition,
-    _bp_driven,
-    _fp_driven,
-    _use_pallas,
     _vshift_sino,
+    bp_driven,
+    fp_driven,
 )
 
 __all__ = [
@@ -60,10 +59,11 @@ def distributed_init(
     process_id: Optional[int] = None,
     **kwargs,
 ) -> None:
-    """Initialise multi-host JAX (DCN) if not already initialised.
+    """Initialise multi-host JAX if not already initialised.
 
-    On TPU pods the arguments are auto-detected from the environment;
-    pass them explicitly for CPU/GPU clusters.  Safe to call twice.
+    Pass the coordinator address, process count and process id
+    explicitly; nothing in a plain GPU cluster tells JAX of them.  Safe to
+    call twice.
     """
     try:
         jax.distributed.initialize(
@@ -90,7 +90,7 @@ def make_mesh(
 
     Multi-host: ``jax.devices()`` is process-major, so with
     ``n_z % process_count == 0`` (enforced) the z axis splits across hosts
-    over DCN and the angle axis stays within a host (ICI), which is the
+    and the angle axis stays within a host, which is the
     communication-optimal layout for this workload.
     """
     devices = list(devices if devices is not None else jax.devices())
@@ -109,7 +109,7 @@ def make_mesh(
     if n_proc > 1 and n_z % n_proc != 0:
         raise ValueError(
             f"multi-host mesh needs the z axis ({n_z}) divisible by the "
-            f"process count ({n_proc}) so slabs split over DCN; got "
+            f"process count ({n_proc}) so slabs split across hosts; got "
             f"{n_z} % {n_proc} != 0"
         )
     dev_array = np.asarray(devices).reshape(n_z, n_angles)
@@ -186,11 +186,14 @@ class ShardedProjector:
     sinograms are sharded over (z, angles); ``bp`` psums partial
     backprojections over the angle axis.  Every device runs the same
     program — per-shard angle parameters are data, not geometry branches.
+    ``impl`` picks the per-shard implementation as for
+    :class:`~tomobar_tpu.ops.projector.Projector`.
     """
 
-    def __init__(self, geom: Geometry, mesh: Mesh):
+    def __init__(self, geom: Geometry, mesh: Mesh, impl: str = "auto"):
         self.geom = geom
         self.mesh = mesh
+        self.impl = impl
         self.n_ang_shards = mesh.shape["angles"]
         self.subset_indices = geom.os_indices()
         self._plan = _ShardPlan(geom, self.n_ang_shards)
@@ -206,25 +209,19 @@ class ShardedProjector:
 
     def _fp_group(self, vol, grp: _GroupPlan, det_x: int, transpose: bool):
         """vol (nz, n, n) -> padded group sinogram (nz, S*B, det_x)."""
-        use_pallas = _use_pallas()
 
         def local(v, c, s, r):
             vv = jnp.swapaxes(v, 1, 2) if transpose else v
-            if use_pallas:
-                from tomobar_tpu.ops.projector_pallas import (
-                    fp_driven_pallas_from_data,
-                )
+            return fp_driven(vv, c, s, r, det_x, self.impl)
 
-                return fp_driven_pallas_from_data(vv, c, s, r, det_x)
-            return _fp_driven(vv, c, s, r, det_x, varying=("z", "angles"))
-
-        # pallas_call outputs carry no vma metadata -> disable check there
+        # pallas_call outputs carry no varying-axes metadata, so the
+        # per-shard kernels run with the check off
         return shard_map(
             local,
             mesh=self.mesh,
             in_specs=(self.vol_spec, P("angles"), P("angles"), P("angles")),
             out_specs=self.sino_spec,
-            check_vma=not use_pallas,
+            check_vma=False,
         )(
             vol,
             jnp.asarray(grp.cos, jnp.float32),
@@ -234,17 +231,9 @@ class ShardedProjector:
 
     def _bp_group(self, sino_g, grp: _GroupPlan, n: int, transpose: bool):
         """padded group sinogram (nz, S*B, det_x) -> vol (nz, n, n)."""
-        use_pallas = _use_pallas()
 
         def local(s_, c, s2, r):
-            if use_pallas:
-                from tomobar_tpu.ops.projector_pallas import (
-                    bp_driven_pallas_from_data,
-                )
-
-                part = bp_driven_pallas_from_data(s_, c, s2, r, n, n)
-            else:
-                part = _bp_driven(s_, c, s2, r, n, n, varying=("z", "angles"))
+            part = bp_driven(s_, c, s2, r, n, n, self.impl)
             if transpose:
                 part = jnp.swapaxes(part, 1, 2)
             return jax.lax.psum(part, "angles")
@@ -254,7 +243,7 @@ class ShardedProjector:
             mesh=self.mesh,
             in_specs=(self.sino_spec, P("angles"), P("angles"), P("angles")),
             out_specs=self.vol_spec,
-            check_vma=not use_pallas,
+            check_vma=False,
         )(
             sino_g,
             jnp.asarray(grp.cos, jnp.float32),

@@ -1,4 +1,4 @@
-"""Proximal regularisers: ROF-TV and PD-TV (Chambolle-Pock), TPU-native.
+"""Proximal regularisers: ROF-TV and PD-TV (Chambolle-Pock).
 
 Numerical semantics replicate the reference's fused CUDA kernels:
 
@@ -9,11 +9,11 @@ Numerical semantics replicate the reference's fused CUDA kernels:
   (one fused primal-dual iteration: dual ascent + TV-ball projection
   (iso/aniso), backward-difference divergence, relaxed primal step).
 
-Implementation notes (TPU-first): each iteration is a chain of elementwise
-ops and 1-pixel shifts expressed in jnp inside ``lax.fori_loop`` — XLA fuses
-the chain into a handful of kernels per iteration, which plays the same role
-as the reference's hand-fused CUDA kernels.  ``half_precision=True`` stores
-the gradient/dual buffers in bfloat16 (the TPU analogue of the fp16 option,
+Implementation notes: each iteration is a chain of elementwise ops and
+1-pixel shifts expressed in jnp inside ``lax.fori_loop`` — XLA fuses the
+chain into a handful of kernels per iteration, which plays the same role as
+the reference's hand-fused CUDA kernels.  ``half_precision=True`` stores
+the gradient/dual buffers in bfloat16 (the analogue of the fp16 option,
 ``regularisersCuPy.py:77,212``).
 """
 
@@ -137,52 +137,11 @@ def PD_TV(
     nonneg: int = 0,
     lipschitz_const: float = 8.0,
     half_precision: bool = False,
-    layout: str = "zyx",
 ) -> jnp.ndarray:
     """Primal-Dual (Chambolle-Pock) TV denoising, iso/aniso, optional
-    non-negativity, fused per-iteration update.
-
-    On TPU, shapes with ``nx % 128 == 0`` dispatch to the fused Pallas
-    kernel (:mod:`tomobar_tpu.ops.pd_tv_pallas`, one kernel launch per
-    iteration — the structural equivalent of the reference's fused CUDA
-    kernel); the XLA elementwise chain is the fallback and the numerical
-    reference (both paths agree to float precision).
-
-    ``layout="t"`` marks 3D input already in the kernels' native
-    ``(ny, nz, nx)`` layout (the solvers' t-layout state, see
-    ``ops/projector.py`` ``_TProjector``): the Pallas path then skips its
-    entry/exit transposes entirely, and the XLA fallback operates on the
-    array as-is — TV is symmetric in its three axes, so the result is the
-    exactly transposed reconstruction either way."""
-    from tomobar_tpu.ops.pd_tv_pallas import pd_tv_pallas, pd_tv_pallas_supported
-    from tomobar_tpu.ops.projector_pallas import pallas_available
-
-    vol3 = data if data.ndim == 3 else data[None] if data.ndim == 2 else None
-    logical = None
-    if vol3 is not None:
-        ny_, nz_, nx_ = vol3.shape if layout == "t" else (
-            vol3.shape[1], vol3.shape[0], vol3.shape[2]
-        )
-        logical = (nz_, ny_, nx_)
-    if (
-        vol3 is not None
-        and pallas_available()
-        and pd_tv_pallas_supported(logical)
-    ):
-        out = pd_tv_pallas(
-            jnp.asarray(vol3, dtype=jnp.float32),
-            regularisation_parameter,
-            iterations,
-            methodTV,
-            nonneg,
-            lipschitz_const,
-            half_precision,
-            layout=layout,
-        )
-        # output shape matches the reference convention either way:
-        # 2D in -> (1, H, W) out (regularisersCuPy.py:164-167,293-296)
-        return out
-
+    non-negativity, one fused update per iteration (XLA fuses each
+    iteration's elementwise chain, the structural equivalent of the
+    reference's fused CUDA kernel)."""
     data, input_is_2d, ind_axis = _squeeze_2d(data)
     ndim = data.ndim
     dual_dtype = jnp.bfloat16 if half_precision else jnp.float32
@@ -225,9 +184,7 @@ def PD_TV(
     return out
 
 
-def prox_regul(
-    self, X: jnp.ndarray, _regularisation_: dict, layout: str = "zyx"
-) -> jnp.ndarray:
+def prox_regul(self, X: jnp.ndarray, _regularisation_: dict) -> jnp.ndarray:
     """Dispatch the proximal operator by ``_regularisation_["method"]``.
 
     Mirrors ``regularisersCuPy.py:6-38`` (substring matching, so combined
@@ -238,18 +195,6 @@ def prox_regul(
     (wavelet threshold = ``regul_param2``, the legacy demo convention).
     """
     method = _regularisation_["method"]
-    # t-layout state (volumes as (ny, nz, nx), see solvers/core.py):
-    # ROF_TV/PD_TV are axis-symmetric stencils, so they run natively on
-    # the transposed array (PD_TV additionally skips its Pallas entry/exit
-    # transposes via layout="t"); every other method is applied through a
-    # transpose wrap for safety (NLTV's neighbour tables and the legacy
-    # stencils are validated in canonical layout only).
-    if layout == "t" and X.ndim == 3 and not (
-        method is None or "ROF_TV" in method or "PD_TV" in method
-    ):
-        return jnp.swapaxes(
-            prox_regul(self, jnp.swapaxes(X, 0, 1), _regularisation_), 0, 1
-        )
     out = None
     if method is not None and "ROF_TV" in method:
         out = ROF_TV(
@@ -268,7 +213,6 @@ def prox_regul(
             getattr(self, "nonneg_regul", 0),
             _regularisation_["PD_LipschitzConstant"],
             _regularisation_.get("half_precision", False),
-            layout=layout,
         )
     elif method is not None and "FGP_TV" in method:
         from tomobar_tpu.regularisers_legacy import FGP_TV

@@ -1,4 +1,4 @@
-"""Legacy (retired RecToolsIR) regulariser family, TPU-native.
+"""Legacy (retired RecToolsIR) regulariser family, in JAX.
 
 The reference removed its host/NumPy iterative class together with the
 CCPi-Regularisation-Toolkit dependency in v2026.3.0.0
@@ -7,7 +7,7 @@ CCPi-Regularisation-Toolkit dependency in v2026.3.0.0
 surface through ``_regularisation_["method"]`` strings: FGP_TV, SB_TV,
 LLT_ROF, TGV, NDF, Diff4th, NLTV and ``*_WAVELETS`` combinations
 (SURVEY.md §2.4).  This module restores that surface as first-class
-TPU-native operators.
+device-resident JAX operators.
 
 Every operator is the published algorithm expressed as a fused jnp chain
 inside ``lax.fori_loop`` — XLA fuses each iteration into a handful of
@@ -167,7 +167,7 @@ def SB_TV(
     Same objective as :func:`FGP_TV` up to the boundary convention of the
     discrete gradient (zero-at-end Neumann here); the u-subproblem uses
     one residual-form Jacobi sweep per outer iteration (the reference CPU
-    codes use one Gauss-Seidel sweep — Jacobi is the TPU-parallel
+    codes use one Gauss-Seidel sweep — Jacobi is the data-parallel
     equivalent, and in residual form its fixed point solves the linear
     system exactly).
     """
@@ -635,7 +635,7 @@ def WAVELET_SHRINK(
 ) -> jnp.ndarray:
     """Multi-level Haar wavelet soft-thresholding (2D or 3D).
 
-    The TPU-native stand-in for the toolkit wavelet shrinkage the legacy
+    The device-resident stand-in for the toolkit wavelet shrinkage the legacy
     ``*_WAVELETS`` method strings invoked after the primary prox
     (``Demos/methods_IR_legacy/DemoFISTA_real_artifacts3D.py``:
     ``regul_param2`` is the wavelet threshold).

@@ -1,7 +1,7 @@
 """Iterative solver cores: power method, Landweber, SIRT, CGLS, FISTA,
 ADMM, OSEM — functional, jit-compiled, device-resident.
 
-These are the TPU-native equivalents of the reference solver bodies in
+These are the device-resident equivalents of the reference solver bodies in
 ``tomobar/methodsIR_CuPy.py`` (Landweber:128, SIRT:174, CGLS:233,
 powermethod:311, FISTA:401, ADMM:486, OSEM:587).  Design notes:
 
@@ -53,24 +53,6 @@ def _subset_slices(projector: Projector, sino, w=None):
     return subs, w_subs
 
 
-def _t_mode_ok(projector, fidelity: str = "LS") -> bool:
-    """True when the solver should run its state in t-layout (volumes
-    (ny, nz, nx), sinograms (angles, nz, det)) — the Pallas kernels'
-    native layouts, which remove the per-call volume transposes of the
-    canonical API (~5 ms per FP+BP pair at 1801x8x2560 on v5e; see
-    ``ops/projector.py`` ``_TProjector``).  SWLS is excluded because its
-    stripe-weight builder reads specific sinogram axes
-    (:func:`tomobar_tpu.fidelity.swls_weights`)."""
-    sup = getattr(projector, "supports_t", None)
-    return bool(sup is not None and sup() and fidelity != "SWLS")
-
-
-def _swap_zy(x):
-    """Canonical <-> t-layout conversion (axes 0 and 1 swapped); applied
-    once per solve at entry/exit, not per iteration."""
-    return jnp.swapaxes(x, 0, 1)
-
-
 # ---------------------------------------------------------------------------
 
 
@@ -88,14 +70,12 @@ def power_method(
     the reference).
     """
     use_os = len(projector.subset_indices) > 1
-    use_t = _t_mode_ok(projector)
-    op = projector.t_view() if use_t else projector
 
     def Ax(v):
-        return op.fp_sub(v, 0) if use_os else op.fp(v)
+        return projector.fp_sub(v, 0) if use_os else projector.fp(v)
 
     def Atb(r):
-        return op.bp_sub(r, 0) if use_os else op.bp(r)
+        return projector.bp_sub(r, 0) if use_os else projector.bp(r)
 
     @jax.jit
     def run(x1):
@@ -114,10 +94,6 @@ def power_method(
 
     del use_pwls  # weights are ones in the reference's power method
     x1 = jax.random.normal(jax.random.PRNGKey(seed), vol_shape, dtype=jnp.float32)
-    if use_t:
-        # same random start, transposed: the iterates are the exactly
-        # permuted canonical ones, so the returned norm is unchanged
-        x1 = _swap_zy(x1)
     return float(run(x1))
 
 
@@ -133,27 +109,20 @@ def landweber(
 ) -> jnp.ndarray:
     nz = sino.shape[0]
     n = projector.geom.recon_size
-    use_t = _t_mode_ok(projector)
-    op = projector.t_view() if use_t else projector
-    if use_t:
-        sino = _swap_zy(sino)
 
     @jax.jit
     def run(b):
         def body(_, x):
-            residual = op.fp(x) - b
-            x = x - tau_step * op.bp(residual)
+            residual = projector.fp(x) - b
+            x = x - tau_step * projector.bp(residual)
             if nonnegativity:
                 x = jnp.maximum(x, 0.0)
             return x
 
-        x0 = jnp.zeros(
-            (n, nz, n) if use_t else (nz, n, n), dtype=jnp.float32
-        )
+        x0 = jnp.zeros((nz, n, n), dtype=jnp.float32)
         return jax.lax.fori_loop(0, iterations, body, x0)
 
-    x = run(sino)
-    return _swap_zy(x) if use_t else x
+    return run(sino)
 
 
 def sirt(
@@ -164,31 +133,24 @@ def sirt(
 ) -> jnp.ndarray:
     nz = sino.shape[0]
     n = projector.geom.recon_size
-    use_t = _t_mode_ok(projector)
-    op = projector.t_view() if use_t else projector
-    if use_t:
-        sino = _swap_zy(sino)
 
     @jax.jit
     def run(b):
-        ones_vol = jnp.ones(
-            (n, nz, n) if use_t else (nz, n, n), dtype=jnp.float32
-        )
-        R = 1.0 / op.fp(ones_vol)
+        ones_vol = jnp.ones((nz, n, n), dtype=jnp.float32)
+        R = 1.0 / projector.fp(ones_vol)
         R = jnp.nan_to_num(R, nan=1.0, posinf=1.0, neginf=1.0)
-        C = 1.0 / op.bp(jnp.ones_like(b))
+        C = 1.0 / projector.bp(jnp.ones_like(b))
         C = jnp.nan_to_num(C, nan=1.0, posinf=1.0, neginf=1.0)
 
         def body(_, x):
-            x = x + C * op.bp(R * (b - op.fp(x)))
+            x = x + C * projector.bp(R * (b - projector.fp(x)))
             if nonnegativity:
                 x = jnp.maximum(x, 0.0)
             return x
 
         return jax.lax.fori_loop(0, iterations, body, ones_vol)
 
-    x = run(sino)
-    return _swap_zy(x) if use_t else x
+    return run(sino)
 
 
 def cgls(
@@ -199,27 +161,21 @@ def cgls(
 ) -> jnp.ndarray:
     nz = sino.shape[0]
     n = projector.geom.recon_size
-    use_t = _t_mode_ok(projector)
-    op = projector.t_view() if use_t else projector
-    if use_t:
-        sino = _swap_zy(sino)
 
     @jax.jit
     def run(b):
-        x = jnp.zeros(
-            (n, nz, n) if use_t else (nz, n, n), dtype=jnp.float32
-        )
-        d = op.bp(b)
+        x = jnp.zeros((nz, n, n), dtype=jnp.float32)
+        d = projector.bp(b)
         normr2 = jnp.vdot(d, d).real.astype(jnp.float32)
         r = b
 
         def body(_, carry):
             x, d, r, normr2 = carry
-            Ad = op.fp(d)
+            Ad = projector.fp(d)
             alpha = normr2 / jnp.vdot(Ad, Ad).real.astype(jnp.float32)
             x = x + alpha * d
             r = r - alpha * Ad
-            s = op.bp(r)
+            s = projector.bp(r)
             normr2_new = jnp.vdot(s, s).real.astype(jnp.float32)
             beta = normr2_new / normr2
             d = s + beta * d
@@ -233,8 +189,7 @@ def cgls(
         x, _, _, _ = jax.lax.fori_loop(0, iterations, body, (x, d, r, normr2))
         return x
 
-    x = run(sino)
-    return _swap_zy(x) if use_t else x
+    return run(sino)
 
 
 # ---------------------------------------------------------------------------
@@ -269,7 +224,6 @@ def fista(
     verbose: bool = False,
     step_cache: Optional[dict] = None,
     step_key=None,
-    regul_fn_t: Optional[Callable] = None,
 ) -> jnp.ndarray:
     """FISTA with optional ordered subsets and proximal regularisation
     (``methodsIR_CuPy.py:401-484``).
@@ -278,32 +232,16 @@ def fista(
     norm per outer iteration (the reference accepts the parameter but
     never uses it, ``dicts.py:153-155`` — a consciously fixed quirk; the
     default 0.0 preserves reference behaviour).  ``verbose`` prints the
-    per-outer-iteration relative update norm host-side (the TPU equivalent
-    of the reference's gated progress prints, ``methodsIR_CuPy.py:568-576``;
-    the loop then runs one jitted sweep per outer iteration because the TPU
-    deployment runtime has no host-callback support for in-jit printing).
-
-    On the Pallas backend the solver state runs in t-layout (volumes
-    (ny, nz, nx), sinograms (angles, nz, det)) with conversions only at
-    entry/exit — see :func:`_t_mode_ok`; ``regul_fn_t`` is the t-layout
-    proximal operator and is required for t-mode when ``regul_fn`` is
-    given."""
+    per-outer-iteration relative update norm host-side (the equivalent of
+    the reference's gated progress prints, ``methodsIR_CuPy.py:568-576``);
+    the loop then runs one jitted sweep per outer iteration
+    (:func:`_host_outer_loop`)."""
     nz = sino.shape[0]
     n = projector.geom.recon_size
     n_sub = len(projector.subset_indices)
     use_os = n_sub > 1
     fid_kwargs = fid_kwargs or {}
     L_inv = jnp.float32(1.0 / lipschitz_const)
-    use_t = _t_mode_ok(projector, fidelity) and (
-        regul_fn is None or regul_fn_t is not None
-    )
-    if use_t:
-        projector = projector.t_view()
-        sino = _swap_zy(sino)
-        if x0 is not None:
-            x0 = _swap_zy(x0)
-        if regul_fn is not None:
-            regul_fn = regul_fn_t
 
     def sweep(carry, subs, w_subs):
         x, x_t, t = carry
@@ -330,9 +268,7 @@ def fista(
         return (x, x_t, t)
 
     if x0 is None:
-        x0 = jnp.zeros(
-            (n, nz, n) if use_t else (nz, n, n), dtype=jnp.float32
-        )
+        x0 = jnp.zeros((nz, n, n), dtype=jnp.float32)
 
     if verbose:
         x = _host_outer_loop(
@@ -340,7 +276,7 @@ def fista(
             fidelity, fid_kwargs, iterations, tolerance,
             step_cache=step_cache, step_key=step_key,
         )
-        return _swap_zy(x) if use_t else x
+        return x
 
     @jax.jit
     def run(b, x_init):
@@ -374,8 +310,7 @@ def fista(
             )
         return x
 
-    x = run(sino, x0)
-    return _swap_zy(x) if use_t else x
+    return run(sino, x0)
 
 
 def _host_outer_loop(
@@ -392,9 +327,9 @@ def _host_outer_loop(
     makes ``tolerance`` early stopping observable, and outer iterations are
     seconds-long at production scale, so the denser cadence costs nothing.
 
-    The TPU deployment runtime rejects host callbacks (``jax.debug.print``),
-    so in-jit printing is impossible; the per-iteration dispatch overhead is
-    the price of progress reporting and only paid when verbose is on.
+    Printing from the host keeps the compiled step free of host callbacks
+    and lets ``tolerance`` stop the loop early; the per-iteration dispatch
+    overhead is paid only when verbose is on.
 
     ``sweep`` is a fresh closure on every solver call, so ``jax.jit``'s
     identity-keyed cache would recompile per invocation (the production
@@ -451,7 +386,6 @@ def admm(
     verbose: bool = False,
     step_cache: Optional[dict] = None,
     step_key=None,
-    regul_fn_t: Optional[Callable] = None,
 ) -> jnp.ndarray:
     """Linearised + relaxed ADMM with ordered subsets
     (``methodsIR_CuPy.py:486-585``).  Note: relaxation activates from outer
@@ -462,25 +396,13 @@ def admm(
     reference's gated prints, ``methodsIR_CuPy.py:568-576``);
     ``tolerance > 0`` adds real early stopping on the relative x-update norm
     (the reference accepts the parameter but ignores it — consciously fixed,
-    default 0.0 = parity).
-
-    Runs in t-layout on the Pallas backend (see :func:`fista`)."""
+    default 0.0 = parity)."""
     nz = sino.shape[0]
     n = projector.geom.recon_size
     n_sub = len(projector.subset_indices)
     use_os = n_sub > 1
     tau = jnp.float32(0.9 / (lipschitz_const + rho_const))
     fid_kwargs = fid_kwargs or {}
-    use_t = _t_mode_ok(projector, fidelity) and (
-        regul_fn is None or regul_fn_t is not None
-    )
-    if use_t:
-        projector = projector.t_view()
-        sino = _swap_zy(sino)
-        if x0 is not None:
-            x0 = _swap_zy(x0)
-        if regul_fn is not None:
-            regul_fn = regul_fn_t
 
     def body(iter_no, carry, subs, w_subs):
         x, z, z_old, u = carry
@@ -509,9 +431,7 @@ def admm(
         return (x, z, z_old, u)
 
     if x0 is None:
-        x0 = jnp.zeros(
-            (n, nz, n) if use_t else (nz, n, n), dtype=jnp.float32
-        )
+        x0 = jnp.zeros((nz, n, n), dtype=jnp.float32)
     init = (x0, x0, jnp.zeros_like(x0), jnp.zeros_like(x0))
 
     if verbose:
@@ -520,7 +440,7 @@ def admm(
             iterations, tolerance, body_takes_iter=True,
             step_cache=step_cache, step_key=step_key,
         )
-        return _swap_zy(x) if use_t else x
+        return x
 
     @jax.jit
     def run(b, carry0):
@@ -552,8 +472,7 @@ def admm(
             )
         return x
 
-    x = run(sino, init)
-    return _swap_zy(x) if use_t else x
+    return run(sino, init)
 
 
 def osem(
@@ -563,7 +482,6 @@ def osem(
     regul_fn: Optional[Callable] = None,
     x0: Optional[jnp.ndarray] = None,
     normalisation_mode: str = "reference",
-    regul_fn_t: Optional[Callable] = None,
 ) -> jnp.ndarray:
     """OSEM (MLEM when OS=1) — multiplicative EM updates
     (``methodsIR_CuPy.py:587-667``).
@@ -590,16 +508,6 @@ def osem(
     n_sub = len(projector.subset_indices)
     use_os = n_sub > 1
     eps = 1e-8
-    use_t = _t_mode_ok(projector) and (
-        regul_fn is None or regul_fn_t is not None
-    )
-    if use_t:
-        projector = projector.t_view()
-        sino = _swap_zy(sino)
-        if x0 is not None:
-            x0 = _swap_zy(x0)
-        if regul_fn is not None:
-            regul_fn = regul_fn_t
 
     @jax.jit
     def run(b, x_init):
@@ -643,8 +551,5 @@ def osem(
         return jax.lax.fori_loop(0, iterations, body, x_init)
 
     if x0 is None:
-        x0 = jnp.ones(
-            (n, nz, n) if use_t else (nz, n, n), dtype=jnp.float32
-        )
-    x = run(sino, x0)
-    return _swap_zy(x) if use_t else x
+        x0 = jnp.ones((nz, n, n), dtype=jnp.float32)
+    return run(sino, x0)

@@ -1,4 +1,4 @@
-"""HBM memory estimation from compiled HLO — the TPU-native equivalent of
+"""Device-memory estimation from compiled HLO — the equivalent of
 the reference's ``DeviceMemStack`` dry-run allocator
 (``tomobar/supp/memory_estimator_helpers.py`` + the ``*_estimator`` shadow
 methods of ``methodsDIR_CuPy.py``).
@@ -134,7 +134,7 @@ def _fourier_inv_stage_memory(
         ),
         "fft1d": (lambda f: fft_pairs(*U._pack_pairs(f)), (filt_s,)),
         "grid": (
-            lambda r, i: U.usfft_grid_dispatch(r, i, n, theta, eps),
+            lambda r, i: U.usfft_grid(r, i, n, theta, eps),
             (spec_s, spec_s),
         ),
         "ifft2": (

@@ -1,6 +1,6 @@
 """Pre/post-processing support tools.
 
-TPU-native equivalents of ``tomobar/supp/suppTools.py`` and the axis-label
+Device-resident equivalents of ``tomobar/supp/suppTools.py`` and the axis-label
 machinery of ``tomobar/supp/funcs.py:84-206``.  Functions accept numpy or
 JAX arrays and return the same family (numpy in -> numpy out) so they can be
 used both host-side (data prep) and device-side (inside pipelines).
